@@ -1,0 +1,54 @@
+"""Architecture config registry of the PyTorch port.
+
+The same ids and aliases as ``repro.configs``.  Only the dense
+configurations that the port runs today have a copy here; every other
+id raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.config import ModelConfig
+
+PORTED = ["gwtf_llama_300m", "gwtf_gpt_300m", "tinyllama_1_1b"]
+
+# arch id -> the ROADMAP.md item that brings it to the port
+_NOT_PORTED = {
+    "musicgen_medium": "Queue 1, model breadth (audio front end)",
+    "mamba2_130m": "Queue 1, model breadth (SSM, on the Queue 2 SSD kernel)",
+    "hymba_1_5b": "Queue 1, model breadth (hybrid, on the Queue 2 SSD kernel)",
+    "granite_moe_3b_a800m": "Queue 1, model breadth (MoE)",
+    "qwen2_moe_a2_7b": "Queue 1, model breadth (MoE)",
+    "llama3_2_vision_90b": "Queue 1, model breadth (VLM cross-attention)",
+    "qwen1_5_4b": "Queue 1, model breadth (remaining dense configs)",
+    "gemma_7b": "Queue 1, model breadth (remaining dense configs; head_dim 256)",
+    "starcoder2_7b": "Queue 1, model breadth (remaining dense configs)",
+    "gwtf_llama_7b": "Queue 1, model breadth (remaining dense configs)",
+}
+
+_ALIASES = {
+    "musicgen-medium": "musicgen_medium",
+    "mamba2-130m": "mamba2_130m",
+    "qwen1.5-4b": "qwen1_5_4b",
+    "gemma-7b": "gemma_7b",
+    "tinyllama-1.1b": "tinyllama_1_1b",
+    "hymba-1.5b": "hymba_1_5b",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "llama-3.2-vision-90b": "llama3_2_vision_90b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "starcoder2-7b": "starcoder2_7b",
+    "gwtf-llama-300m": "gwtf_llama_300m",
+    "gwtf-gpt-300m": "gwtf_gpt_300m",
+    "gwtf-llama-7b": "gwtf_llama_7b",
+}
+
+
+def get_config(arch: str) -> ModelConfig:
+    mod_name = _ALIASES.get(arch, arch).replace("-", "_").replace(".", "_")
+    if mod_name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"{arch} is not ported to repro_torch yet: see ROADMAP.md, "
+            f"{_NOT_PORTED[mod_name]}")
+    if mod_name not in PORTED:
+        raise KeyError(f"unknown arch {arch!r}")
+    return importlib.import_module(f"repro_torch.configs.{mod_name}").CONFIG
