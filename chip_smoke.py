@@ -3,25 +3,35 @@
 
     python3 chip_smoke.py
 
-from the root of a checkout.  It builds the hand-written CUDA kernel from
-the checkout's sources and stops with a non-zero exit at the first phase
-that fails:
+from the root of a checkout.  It builds the hand-written CUDA kernels
+from the checkout's sources (one nvcc per kernel, started together) and
+stops with a non-zero exit at the first phase that fails:
 
-1. device: the card's name and power limit, torch and CUDA versions, the
-   kernel's build time;
+1. device: the card's name and power limit, torch and CUDA versions, each
+   kernel's build time and ptxas register and spill lines;
 2. the flash-attention kernel against its plain PyTorch version on the
    card, at the serving shapes and at f32, ragged, GQA, windowed and
    non-causal shapes, each with its time, the plain version's, the time of
    ``scaled_dot_product_attention`` (a yardstick the port never calls)
    and the least time the card could take;
-3. ``gwtf-llama-300m`` and 4. ``tinyllama-1.1b`` served at full width
-   (bf16 params, f32 cache, batch 8, prompt 512, 32 greedy tokens) through
+3. the SSD scan kernel against its plain version (``ssd_chunked``) at
+   ``mamba2-130m``'s and ``hymba-1.5b``'s serving shapes, both with
+   contiguous inputs and with x, B and C split from one packed tensor as
+   ``apply_mamba`` passes them, and at bf16, ragged and non-zero
+   initial-state shapes, and once against the
+   sequential recurrence; each with its time, the plain version's and the
+   least time the card could take (no single PyTorch call computes it);
+4. ``gwtf-llama-300m``, ``tinyllama-1.1b``, ``mamba2-130m`` and
+   ``hymba-1.5b`` served at full width (bf16 params, f32 cache, batch 8,
+   prompt 512, 32 greedy tokens) through
    ``repro_torch.launch.serve.generate``, one model on the card at a time,
-   the kernel's launches counted over exactly each serve (the main path),
-   then where the time goes: wall time, device busy time and the top
-   kernels of one prefill and of 8 decode steps, from ``torch.profiler``;
-5. the port on the GPU against the port on the CPU, reduced f32 models on
-   the same weights: logits within 1e-3, greedy streams equal;
+   each kernel's launches counted over exactly each serve (the main path)
+   and held to one per attention or SSM layer of the prefill, then where the
+   time goes: wall time, device busy time and the top kernels of one
+   prefill and of 8 decode steps, from ``torch.profiler``;
+5. the port on the GPU against the port on the CPU, reduced f32 models of
+   all four families' configs on the same weights: logits within 1e-3,
+   greedy streams equal;
 6. a JSON line of the kernels, then the card, then the result line.
 
 It needs no network and exits non-zero, printing no result, without a
@@ -34,6 +44,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -48,6 +59,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.runtime.serving import serving_inputs  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
+from repro_torch.kernels.ref import ssd_reference  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models.transformer import (decode_step, init_cache,  # noqa: E402
                                             prefill)
@@ -67,7 +80,32 @@ KERNEL_CASES = [
      True, 32, 2e-2),
     ("non-causal ragged S=130", (2, 130, 8, 8, 64), torch.float32, False, None, 2e-4),
 ]
+# name, (B, S, H, P, N), dtype, initial state ("zero" as the serving
+# cache passes it, "none", or "random"), packed (x, B and C strided views
+# of one (B, S, H*P + 2N) tensor, as apply_mamba splits the causal conv's
+# output), tolerance (rtol = atol): f32 2e-3, since the kernel's chunks
+# associate the sums otherwise than the plain version's (a ragged S is one
+# chunk there); bf16 10x the bf16 2e-2, as in tests/test_kernels.py.  The
+# first case is the main path's: its numbers go to the kernels line.
+SSD_CASES = [
+    ("serve mamba2-130m packed", (8, 512, 24, 64, 128), torch.float32, "zero",
+     True, 2e-3),
+    ("serve hymba-1.5b packed", (8, 512, 50, 64, 16), torch.float32, "zero",
+     True, 2e-3),
+    ("serve mamba2-130m contiguous", (8, 512, 24, 64, 128), torch.float32,
+     "zero", False, 2e-3),
+    ("serve hymba-1.5b contiguous", (8, 512, 50, 64, 16), torch.float32, "zero",
+     False, 2e-3),
+    ("bf16", (2, 256, 3, 32, 64), torch.bfloat16, "none", False, 2e-1),
+    ("ragged S=100", (2, 100, 4, 64, 128), torch.float32, "none", False, 2e-3),
+    ("h0 != 0", (2, 192, 4, 48, 40), torch.float32, "random", False, 2e-3),
+]
+SSD_SEQUENTIAL_CASE = ("sequential oracle", (1, 96, 2, 16, 8), torch.float32,
+                       "random", False, 2e-3)
 SERVE = dict(batch=8, prompt_len=512, gen=32)
+# a prefill launches the flash kernel once per attention layer and the SSD
+# kernel once per SSM layer; decode launches neither
+SERVE_ARCHS = ["gwtf-llama-300m", "tinyllama-1.1b", "mamba2-130m", "hymba-1.5b"]
 
 
 def card_line() -> str:
@@ -107,18 +145,41 @@ def bound(shape, dtype, causal, window):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def ssd_bound(shape, dtype, h0: bool):
+    """Least time for the SSD scan.  Bytes: x and y in their dtype, dt f32,
+    B and C, A, h0 (if given) and h_final f32, each once.  Operations: the
+    causal (row t, row s <= t) pairs of each chunk of 64, Q (Q + 1) / 2 for a
+    chunk of Q rows (a ragged last chunk counts at its length), each 2 N for
+    C B^T, once per (b, chunk) since B and C are shared across heads, and
+    2 P for M x per (b, h); then per (b, h) the state's output and update,
+    2 P N per row each."""
+    B, S, H, P, N = shape
+    elem = torch.tensor([], dtype=dtype).element_size()
+    nbytes = ((2 * B * S * H * P + 2 * B * S * N) * elem + (B * S * H + H) * 4
+              + (2 if h0 else 1) * B * H * P * N * 4)
+    pairs = sum(q * (q + 1) // 2 for q in (min(64, S - c) for c in range(0, S, 64)))
+    flops = 2 * pairs * N * B + 2 * pairs * P * B * H + 4 * S * P * N * B * H
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[torch.float32]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def phase_device():
     print("== 1. device")
     print(f"card: {card_line()}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    libraries = (fa.LIBRARY, ssd.LIBRARY)
     t0 = time.perf_counter()
-    fa.load()
-    print(f"flash_attention kernel built in {fa.build_seconds or 0.0:.1f}s "
-          f"(load {time.perf_counter() - t0:.1f}s)")
-    for line in fa.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    with ThreadPoolExecutor(len(libraries)) as pool:   # one nvcc each, together
+        list(pool.map(lambda lib: lib.build(), libraries))
+    for lib in libraries:
+        lib.load()
+    print(f"kernels built and loaded in {time.perf_counter() - t0:.1f}s")
+    for lib in libraries:
+        print(f"{lib.name} kernel built in {lib.build_seconds or 0.0:.1f}s")
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                print("  ptxas:", line.strip())
 
 
 def phase_kernel():
@@ -165,12 +226,73 @@ def phase_kernel():
     return results
 
 
-def run_serve(label: str, arch: str) -> int:
-    """Serve ``arch`` at full width as the main path; returns the kernel's
+def ssd_inputs(shape, dtype, h0_kind, packed, seed):
+    B, S, H, P, N = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if packed:
+        conv_out = torch.randn(B, S, H * P + 2 * N, generator=g,
+                               device="cuda").to(dtype)
+        xs, Bm, Cm = torch.split(conv_out, [H * P, N, N], dim=-1)
+        x = xs.reshape(B, S, H, P)
+        assert x.data_ptr() == conv_out.data_ptr() and not x.is_contiguous()
+    else:
+        x = torch.randn(B, S, H, P, generator=g, device="cuda").to(dtype)
+        Bm = torch.randn(B, S, N, generator=g, device="cuda").to(dtype)
+        Cm = torch.randn(B, S, N, generator=g, device="cuda").to(dtype)
+    dt = F.softplus(torch.randn(B, S, H, generator=g, device="cuda"))
+    A = -torch.exp(torch.randn(H, generator=g, device="cuda"))
+    h0 = {"none": None,
+          "zero": torch.zeros(B, H, P, N, device="cuda"),
+          "random": torch.randn(B, H, P, N, generator=g, device="cuda")}[h0_kind]
+    return x, dt, A, Bm, Cm, h0
+
+
+def phase_ssd_kernel():
+    print("== 3. SSD scan kernel against its plain version")
+    results = {}
+    for name, shape, dtype, h0_kind, packed, tol in SSD_CASES:
+        B, S, H, P, N = shape
+        x, dt, A, Bm, Cm, h0 = ssd_inputs(shape, dtype, h0_kind, packed, S + H + N)
+        y, hf = ops.ssd_scan(x, dt, A, Bm, Cm, h0=h0)
+        torch.cuda.synchronize()
+        yr, hfr = ops.ssd_scan_plain(x, dt, A, Bm, Cm, h0=h0)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(y.float(), yr.float(), rtol=tol, atol=tol)
+        torch.testing.assert_close(hf, hfr, rtol=tol, atol=tol)
+        err = max((y.float() - yr.float()).abs().max().item(),
+                  (hf - hfr).abs().max().item())
+        ms = median_ms(lambda: ops.ssd_scan(x, dt, A, Bm, Cm, h0=h0), reps=20)
+        plain_ms = median_ms(lambda: ops.ssd_scan_plain(x, dt, A, Bm, Cm, h0=h0),
+                             reps=5)
+        bound_ms, bound_by = ssd_bound(shape, dtype, h0 is not None)
+        print(f"{name}: B={B} S={S} H={H} P={P} N={N} {dtype} h0={h0_kind} "
+              f"x strides {x.stride()} B strides {Bm.stride()} "
+              f"max_abs_err={err:.3g} (rtol = atol = {tol}) kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, no library call, bound {bound_ms:.4f} ms "
+              f"by {bound_by}")
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=None)
+    name, shape, dtype, h0_kind, packed, tol = SSD_SEQUENTIAL_CASE
+    x, dt, A, Bm, Cm, h0 = ssd_inputs(shape, dtype, h0_kind, packed, 7)
+    y, hf = ops.ssd_scan(x, dt, A, Bm, Cm, h0=h0)
+    torch.cuda.synchronize()
+    yr, hfr = ssd_reference(x, dt, A, Bm, Cm, h0=h0)
+    torch.testing.assert_close(y, yr, rtol=tol, atol=tol)
+    torch.testing.assert_close(hf, hfr, rtol=tol, atol=tol)
+    err = max((y - yr).abs().max().item(), (hf - hfr).abs().max().item())
+    print(f"{name}: {shape} {dtype} h0={h0_kind} max_abs_err={err:.3g} "
+          f"(rtol = atol = {tol}) against the sequential recurrence")
+    return results
+
+
+def run_serve(arch: str):
+    """Serve ``arch`` at full width as the main path; returns each kernel's
     launches counted over exactly this serve."""
     cfg = get_config(arch)
-    print(f"== {label}: {cfg.name} full width, {cfg.num_layers} layers, "
+    print(f"== 4. serve {cfg.name} full width, {cfg.num_layers} layers, "
           f"d_model {cfg.d_model}, H/KH {cfg.num_heads}/{cfg.num_kv_heads}, "
+          f"SSD heads {cfg.ssm_heads} (N {cfg.ssm_state}), "
           f"vocab {cfg.vocab_size}, bf16 params, f32 cache")
     model, prompt, g = serving_inputs(cfg, seed=0, batch=SERVE["batch"],
                                       prompt_len=SERVE["prompt_len"],
@@ -182,13 +304,17 @@ def run_serve(label: str, arch: str) -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.flash_attention.launches = 0      # the main path starts here
+    ops.ssd_scan.launches = 0
     out = generate(model, cfg, prompt, gen=SERVE["gen"], window=None,
                    temperature=0.0, generator=g)
-    launches = ops.flash_attention.launches
+    launches = {"flash_attention": ops.flash_attention.launches,
+                "ssd_scan": ops.ssd_scan.launches}
     B = SERVE["batch"]
-    if launches != cfg.num_layers:
-        raise SystemExit(f"flash kernel launched {launches} times in the "
-                         f"prefill, want {cfg.num_layers}")
+    want = {"flash_attention": cfg.num_layers if cfg.has_attention else 0,
+            "ssd_scan": cfg.num_layers if cfg.has_ssm else 0}
+    if launches != want:
+        raise SystemExit(f"kernel launches {launches} over the serve, want "
+                         f"{want}")
     if out.tokens.shape != (B, SERVE["gen"] + 1):
         raise SystemExit(f"tokens of shape {tuple(out.tokens.shape)}")
     if int(out.tokens.min()) < 0 or int(out.tokens.max()) >= cfg.vocab_size:
@@ -199,7 +325,7 @@ def run_serve(label: str, arch: str) -> int:
           f"{SERVE['prompt_len']}), decode {B * SERVE['gen'] / out.decode_s:.1f} "
           f"tok/s ({SERVE['gen']} steps x {B} seqs in {out.decode_s:.3f}s), "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-          f"flash launches {launches}")
+          f"launches {launches}")
     print("sample:", out.tokens[0, :16].tolist())
     print("where the time goes (torch.profiler):")
     profile_serve(cfg, model, prompt)
@@ -254,7 +380,7 @@ def profile_serve(cfg, model, prompt, steps: int = 8):
 
 def phase_gpu_vs_cpu():
     print("== 5. port on cuda against port on cpu (f32, TF32 off)")
-    for arch in ("gwtf-gpt-300m", "gwtf-llama-300m"):
+    for arch in ("gwtf-gpt-300m", "gwtf-llama-300m", "mamba2-130m", "hymba-1.5b"):
         cfg = get_config(arch).reduced()
         runs = {}
         for device in ("cpu", "cuda"):
@@ -284,25 +410,33 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     phase_device()
-    timings = phase_kernel()
+    flash_timings = phase_kernel()
+    ssd_timings = phase_ssd_kernel()
 
     # each serve is one main path, counted from 0 with its model alone
-    # on the card; the kernels line reports their sum
-    launches = run_serve("3. serve", "gwtf-llama-300m")
-    torch.cuda.empty_cache()
-    launches += run_serve("4. serve", "tinyllama-1.1b")
-    torch.cuda.empty_cache()
+    # on the card; the kernels line reports their sums
+    launches = {"flash_attention": 0, "ssd_scan": 0}
+    for arch in SERVE_ARCHS:
+        for name, n in run_serve(arch).items():
+            launches[name] += n
+        torch.cuda.empty_cache()
 
     phase_gpu_vs_cpu()
 
-    main_case = timings[KERNEL_CASES[0][0]]
-    kernels = [dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:30",
-        launches=launches, **main_case)]
-    print(f"kernels: flash_attention launches={launches} "
-          f"max_abs_err={main_case['max_abs_err']:.3g}")
+    kernels = [
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:30",
+             launches=launches["flash_attention"],
+             **flash_timings[KERNEL_CASES[0][0]]),
+        dict(name="ssd_scan", route="cuda",
+             source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+             replaces="src/repro/kernels/ssd_scan.py:31",
+             launches=launches["ssd_scan"], **ssd_timings[SSD_CASES[0][0]]),
+    ]
+    print("kernels: " + ", ".join(
+        f"{k['name']} launches={k['launches']} max_abs_err={k['max_abs_err']:.3g}"
+        for k in kernels))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,9 @@
 """Seeded serving inputs of the PyTorch port.
 
-Port of ``repro.core.runtime.serving.serving_inputs`` for dense models.
-The flow-routed ``ServeTrainer`` is not ported yet (ROADMAP.md, Queue 1).
+Port of ``repro.core.runtime.serving.serving_inputs`` for the dense, SSM
+and hybrid models (``init_params`` draws the SSM weights at the JAX
+package's scales).  The flow-routed ``ServeTrainer`` is not ported yet
+(ROADMAP.md, Queue 1 item 3).
 """
 from __future__ import annotations
 

@@ -1,85 +1,28 @@
-"""Build, load and launch the Hopper flash-attention forward kernel.
+"""Load and launch the Hopper flash-attention forward kernel.
 
-``csrc/flash_attention.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, at first use, into
-``build/<hash of the source and flags>/`` at the root of the checkout, and
-loaded with ``ctypes``.  Nothing is built or loaded at import: the CPU
-tests import this module on hosts without ``nvcc`` or a GPU.
+``csrc/flash_attention.cu`` is built and loaded by ``kernels/build.py`` at
+first use; nothing is built or loaded at import.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+from repro_torch.kernels.build import KernelLibrary
+
 HEAD_DIMS = (64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-_lib = None
-build_seconds = None    # wall time of the build this process ran, if any
-build_log = ""          # nvcc's output (ptxas register and shared-memory use)
+
+def _bind(lib: ctypes.CDLL) -> None:
+    fn = lib.flash_attention_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
-        return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       "the flash-attention kernel")
-
-
-def build() -> Path:
-    """Compile the kernel if this source and these flags were not built yet."""
-    global build_seconds, build_log
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = BUILD_ROOT / key
-    lib = out_dir / "libflash_attention.so"
-    if lib.exists():
-        return lib
-    out_dir.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed building {SOURCE}:\n{build_log}")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    build_seconds = time.perf_counter() - t0
-    return lib
-
-
-def load():
-    """The loaded library, built first if needed."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+LIBRARY = KernelLibrary("flash_attention", _bind)
 
 
 def check_inputs(q, k, v, window) -> None:
@@ -121,7 +64,7 @@ def launch(q, k, v, *, causal: bool, window) -> torch.Tensor:
     the launch was refused.  Does not synchronise.
     """
     check_inputs(q, k, v, window)
-    lib = load()
+    lib = LIBRARY.load()
     B, S, H, D = q.shape
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):

@@ -7,7 +7,8 @@ the one to the other.
 from __future__ import annotations
 
 from repro_torch.kernels import flash_attention as _fa
-from repro_torch.kernels.ref import attention_reference
+from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.kernels.ref import attention_reference, ssd_chunked
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window=None):
@@ -42,3 +43,30 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
 
 
 flash_attention.launches = 0
+
+
+def ssd_scan_plain(x, dt, A, Bm, Cm, *, h0=None):
+    """The plain version of ``ssd_scan``, on any device: ``ssd_chunked``
+    with the JAX model's chunk rule, 64 rows when S is a multiple of 64,
+    else one chunk of all S."""
+    S = x.shape[1]
+    return ssd_chunked(x, dt, A, Bm, Cm, h0=h0, chunk=64 if S % 64 == 0 else S)
+
+
+def ssd_scan(x, dt, A, Bm, Cm, *, h0=None):
+    """Model-layout SSD: x (B, S, H, P), dt (B, S, H), A (H,), Bm/Cm
+    (B, S, N), h0 (B, H, P, N) f32 or None.
+
+    Returns (y (B, S, H, P) in x's dtype, h_final (B, H, P, N) f32).
+    Counterpart of ``repro.kernels.ops.ssd_scan``, with an initial state.
+    On CUDA the kernel reads x, Bm and Cm in place through their strides;
+    ``ssd_scan.launches`` counts the kernel's launches.
+    """
+    if x.is_cuda:
+        out = _ssd.launch(x, dt, A, Bm, Cm, h0)
+        ssd_scan.launches += 1
+        return out
+    return ssd_scan_plain(x, dt, A, Bm, Cm, h0=h0)
+
+
+ssd_scan.launches = 0

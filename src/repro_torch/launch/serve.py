@@ -1,11 +1,17 @@
 """Serving driver of the PyTorch port: batched prefill + decode with a KV
 cache, on the GPU unless ``--device cpu`` is given.
 
-The same CLI as ``repro.launch.serve``, plus ``--device``.  Prefill
-attention always goes through the hand-written flash-attention kernel on
-the GPU (there is no ``--use-kernel``):
+The same CLI as ``repro.launch.serve``, plus ``--device``.  On the GPU,
+prefill attention always goes through the hand-written flash-attention
+kernel and prefill's chunked SSD scan through the hand-written SSD kernel
+(there is no ``--use-kernel``).  An SSM model's cache holds no attention
+slots, so ``--long`` changes nothing for ``mamba2-130m``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gwtf-llama-300m \
+      --batch 8 --prompt-len 512 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
+      --batch 8 --prompt-len 512 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
       --batch 8 --prompt-len 512 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --reduced --batch 4 --prompt-len 32 --gen 32 --device cpu
@@ -50,8 +56,8 @@ def generate(model: Transformer, cfg: ModelConfig, prompt: torch.Tensor, *,
              generator: Optional[torch.Generator]) -> Generation:
     """Prefill ``prompt`` (B, P), then decode ``gen`` steps.
 
-    With ``window`` the cache is a ring buffer of ``window`` slots, else it
-    holds ``P + gen``.  The cache is f32 whatever the params' dtype, as in
+    With ``window`` the attention cache is a ring buffer of ``window``
+    slots, else it holds ``P + gen``; the SSM state is O(1) either way.  The cache is f32 whatever the params' dtype, as in
     the JAX driver.  Greedy when ``temperature <= 0``.
     """
     B, P = prompt.shape

@@ -3,7 +3,8 @@
 On the CPU ``repro_torch.kernels.ops.flash_attention`` runs its plain
 version; the JAX side runs the Pallas kernel in interpret mode and its
 jnp oracle, on the same numpy inputs.  The CUDA kernel itself is held
-against the plain version on the card by ``chip_smoke.py``.
+against the plain version on the card by ``chip_smoke.py``.  Also the
+shared build helper (``kernels/build.py``), with a stand-in for nvcc.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -132,3 +133,55 @@ def test_empty_window_is_refused():
     q, k, v = (torch.from_numpy(a) for a in _inputs(1, 1, 64, 2, 2, 64))
     with pytest.raises(ValueError, match="window"):
         ops.flash_attention(q, k, v, window=0)
+
+
+def _fake_nvcc(tmp_path, body):
+    """A stand-in for nvcc: a shell script with ``body`` (``$out`` is the
+    path after -o)."""
+    script = tmp_path / "nvcc"
+    script.write_text("#!/bin/sh\nwhile [ \"$1\" != -o ]; do shift; done\n"
+                      f"out=$2\n{body}\n")
+    script.chmod(0o755)
+    return str(script)
+
+
+def _libraries(tmp_path, monkeypatch, names, nvcc):
+    from repro_torch.kernels import build
+    csrc = tmp_path / "csrc"
+    csrc.mkdir(exist_ok=True)
+    for name in names:
+        (csrc / f"{name}.cu").write_text(f"// {name}\n")
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setattr(build, "BUILD_ROOT", tmp_path / "build")
+    monkeypatch.setattr(build, "_nvcc", lambda: nvcc)
+    return [build.KernelLibrary(name, bind=None) for name in names]
+
+
+def test_build_helper_builds_each_source_once(tmp_path, monkeypatch):
+    """One library per source, keyed by its hash; a built one is reused."""
+    from repro_torch.kernels import build
+    nvcc = _fake_nvcc(tmp_path, 'echo "ptxas info : Used 8 registers"; '
+                                'echo built > "$out"')
+    libs = _libraries(tmp_path, monkeypatch, ["one", "two"], nvcc)
+    assert libs[0].path().parent != libs[1].path().parent
+    for lib in libs:
+        lib.build()
+    for lib in libs:
+        assert lib.path().read_text() == "built\n"
+        assert lib.build_seconds is not None and "registers" in lib.build_log
+        assert lib.lib is None                       # built, not loaded
+    again = build.KernelLibrary("one", bind=None)
+    again.build()
+    assert again.build_seconds is None
+    built = again.path()
+    (tmp_path / "csrc" / "one.cu").write_text("// changed\n")
+    assert again.path() != built
+
+
+def test_build_helper_raises_with_the_nvcc_log(tmp_path, monkeypatch):
+    nvcc = _fake_nvcc(tmp_path, 'echo "error: no such intrinsic"; exit 2')
+    lib, = _libraries(tmp_path, monkeypatch, ["bad"], nvcc)
+    with pytest.raises(RuntimeError, match="no such intrinsic"):
+        lib.load()
+    assert lib.lib is None and not lib.path().exists()
+    assert not list(lib.path().parent.iterdir())    # no partial output left

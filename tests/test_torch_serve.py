@@ -67,8 +67,11 @@ def _run_both(arch, *, layers, d_model, batch, prompt_len, gen, window=None,
 
 @pytest.mark.parametrize("arch,d_model", [("gwtf-gpt-300m", 256),
                                           ("gwtf-llama-300m", 256),
-                                          ("tinyllama-1.1b", 512)])
+                                          ("tinyllama-1.1b", 512),
+                                          ("mamba2-130m", 256),
+                                          ("hymba-1.5b", 640)])
 def test_greedy_decode_matches_jax(arch, d_model):
+    """Dense, SSM and hybrid; hymba at d_model 640 has 10/5 heads (GQA)."""
     out, want_toks, want_logits = _run_both(
         arch, layers=2, d_model=d_model, batch=2, prompt_len=16, gen=8)
     assert out.logits.shape == want_logits.shape
@@ -83,6 +86,48 @@ def test_ring_buffer_decode_matches_jax():
         gen=24, window=16)
     np.testing.assert_allclose(out.logits.numpy(), want_logits, **LOGITS)
     np.testing.assert_array_equal(out.tokens.numpy(), want_toks)
+
+
+def test_hybrid_ring_buffer_decode_matches_jax():
+    """hymba with --long --window 16, prompt 8, gen 24: the attention ring
+    wraps twice while the SSM state runs on."""
+    out, want_toks, want_logits = _run_both(
+        "hymba-1.5b", layers=2, d_model=128, batch=2, prompt_len=8,
+        gen=24, window=16)
+    np.testing.assert_allclose(out.logits.numpy(), want_logits, **LOGITS)
+    np.testing.assert_array_equal(out.tokens.numpy(), want_toks)
+
+
+def test_ssm_cache_holds_no_attention_slots():
+    cfg = get_config("mamba2-130m").reduced()
+    cache = TT.init_cache(cfg, 2, 40, dtype=torch.float32, device="cpu")
+    assert set(cache) == {"ssm"}
+    di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    assert cache["ssm"]["conv"].shape == (2, 2, cfg.ssm_conv - 1, di + 2 * N)
+    assert cache["ssm"]["ssm"].shape == (2, 2, H, di // H, N)
+    hybrid = get_config("hymba-1.5b").reduced()
+    assert set(TT.init_cache(hybrid, 2, 40, device="cpu")) == {"attn", "ssm"}
+
+
+def test_ssm_params_load_bit_exact():
+    """blocks/mamba: bf16 leaves load bit for bit, f32 leaves stay f32."""
+    jcfg = dataclasses.replace(jax_config("hymba-1.5b").reduced(d_model=128),
+                               param_dtype="bfloat16")
+    tcfg = dataclasses.replace(get_config("hymba-1.5b").reduced(d_model=128),
+                               param_dtype="bfloat16")
+    params, *_ = jax_serving_inputs(jcfg, seed=2, batch=1, prompt_len=4)
+    tree = jax.tree.map(np.asarray, params)
+    model = params_from_jax(tcfg, tree, device="cpu")
+    for leaf, arr in tree["blocks"]["mamba"].items():
+        got = model.blocks[1].mamba[leaf].detach()
+        if arr.dtype.name == "bfloat16":
+            assert got.dtype == torch.bfloat16, leaf
+            np.testing.assert_array_equal(got.view(torch.int16).numpy(),
+                                          arr[1].view(np.int16))
+        else:
+            assert got.dtype == torch.float32, leaf
+            np.testing.assert_array_equal(got.numpy(), arr[1])
+    assert set(model.blocks[0]._modules) == {"ln1", "attn", "mamba", "ln2", "mlp"}
 
 
 def test_bf16_params_load_bit_exact_and_decode_close():
@@ -147,6 +192,15 @@ def test_port_cli_long_mode_on_cpu(monkeypatch, capsys):
         "--long", "--window", "16", "--device", "cpu"])
     tserve.main()
     assert "ring-buffer" in capsys.readouterr().out
+
+
+def test_port_cli_runs_ssm_on_cpu(monkeypatch, capsys):
+    monkeypatch.setattr(sys, "argv", [
+        "serve", "--arch", "mamba2-130m", "--reduced", "--batch", "1",
+        "--prompt-len", "8", "--gen", "2", "--device", "cpu"])
+    tserve.main()
+    out = capsys.readouterr().out
+    assert "prefill: bs=1 len=8" in out and "decoded 2 steps" in out
 
 
 def test_port_cli_without_gpu_raises(monkeypatch):
