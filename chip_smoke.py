@@ -10,25 +10,33 @@ stops with a non-zero exit at the first phase that fails:
 1. device: the card's name and power limit, torch and CUDA versions, each
    kernel's build time and ptxas register and spill lines;
 2. the flash-attention kernel against its plain PyTorch version on the
-   card, at the serving shapes and at f32, ragged, GQA, windowed and
-   non-causal shapes, each with its time, the plain version's, the time of
+   card, at the three serving shapes and at f32, ragged, GQA, windowed and
+   non-causal shapes, each with the body it ran (bf16 on the tensor cores,
+   ``flash_attention_sm90.cu``; f32 on the CUDA cores,
+   ``flash_attention.cu``), the median time of a single call (CUDA
+   events, the host's enqueue inside), the plain version's, the time of
    ``scaled_dot_product_attention`` (a yardstick the port never calls)
-   and the least time the card could take;
+   and the least time the card could take, then the device time per
+   call of the kernel, the plain version and SDPA (calls queued back to
+   back between CUDA events, the host's enqueue left out);
 3. the SSD scan kernel against its plain version (``ssd_chunked``) at
    ``mamba2-130m``'s and ``hymba-1.5b``'s serving shapes, both with
    contiguous inputs and with x, B and C split from one packed tensor as
    ``apply_mamba`` passes them, and at bf16, ragged and non-zero
    initial-state shapes, and once against the
-   sequential recurrence; each with its time, the plain version's and the
-   least time the card could take (no single PyTorch call computes it);
+   sequential recurrence; each with a single call's time, the plain
+   version's and the least time the card could take (no single PyTorch
+   call computes it), then the device times per call, as for flash;
 4. ``gwtf-llama-300m``, ``tinyllama-1.1b``, ``mamba2-130m`` and
    ``hymba-1.5b`` served at full width (bf16 params, f32 cache, batch 8,
    prompt 512, 32 greedy tokens) through
    ``repro_torch.launch.serve.generate``, one model on the card at a time,
    each kernel's launches counted over exactly each serve (the main path)
-   and held to one per attention or SSM layer of the prefill, then where the
-   time goes: wall time, device busy time and the top kernels of one
-   prefill and of 8 decode steps, from ``torch.profiler``;
+   and held to one per attention or SSM layer of the prefill, every flash
+   launch on the bf16 tensor-core body, then where the
+   time goes: wall time, device busy time, the top kernels and the port's
+   own kernels (each with its share of the busy time) of one prefill and
+   of 8 decode steps, from ``torch.profiler``;
 5. the port on the GPU against the port on the CPU, reduced f32 models of
    all four families' configs on the same weights: logits within 1e-3,
    greedy streams equal;
@@ -73,12 +81,16 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 KERNEL_CASES = [
     ("serve gwtf-llama-300m", (8, 512, 16, 16, 64), torch.bfloat16, True, None, 2e-2),
     ("serve tinyllama-1.1b GQA 32/4", (8, 512, 32, 4, 64), torch.bfloat16, True, None, 2e-2),
+    ("serve hymba-1.5b GQA 25/5", (8, 512, 25, 5, 64), torch.bfloat16, True, None, 2e-2),
     ("f32 S=256 D=128", (2, 256, 8, 8, 128), torch.float32, True, None, 2e-4),
     ("ragged S=100", (4, 100, 16, 16, 64), torch.float32, True, None, 2e-4),
+    ("bf16 ragged S=100", (4, 100, 16, 16, 64), torch.bfloat16, True, None, 2e-2),
     ("window 64", (8, 512, 16, 16, 64), torch.bfloat16, True, 64, 2e-2),
     ("bf16 D=128 GQA 8/2 window 32 ragged S=200", (2, 200, 8, 2, 128), torch.bfloat16,
      True, 32, 2e-2),
     ("non-causal ragged S=130", (2, 130, 8, 8, 64), torch.float32, False, None, 2e-4),
+    ("bf16 non-causal ragged S=130", (2, 130, 8, 8, 64), torch.bfloat16, False,
+     None, 2e-2),
 ]
 # name, (B, S, H, P, N), dtype, initial state ("zero" as the serving
 # cache passes it, "none", or "random"), packed (x, B and C strided views
@@ -102,6 +114,9 @@ SSD_CASES = [
 ]
 SSD_SEQUENTIAL_CASE = ("sequential oracle", (1, 96, 2, 16, 8), torch.float32,
                        "random", False, 2e-3)
+BODY_NAMES = {"flash_attention_sm90": "tensor-core bf16 (flash_attention_sm90.cu)",
+              "flash_attention": "CUDA-core f32 (flash_attention.cu)"}
+PORT_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_kernel", "ssd_scan_kernel")
 SERVE = dict(batch=8, prompt_len=512, gen=32)
 # a prefill launches the flash kernel once per attention layer and the SSD
 # kernel once per SSM layer; decode launches neither
@@ -115,7 +130,9 @@ def card_line() -> str:
 
 
 def median_ms(fn, reps: int, warmup: int = 3) -> float:
-    """Median over ``reps`` single calls, each timed with CUDA events."""
+    """Median over ``reps`` single calls, each timed with CUDA events: the
+    host's enqueue is inside the window, so for a kernel shorter than its
+    wrapper's host work this measures the host."""
     for _ in range(warmup):
         fn()
     times = []
@@ -128,6 +145,44 @@ def median_ms(fn, reps: int, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int, runs: int = 3, warmup: int = 3):
+    """Device time per call: ``reps`` calls between two CUDA events, queued
+    behind a spin kernel so that the device runs them back to back and the
+    host's enqueue stays out.  A run counts only if the start event was
+    still pending when the host had queued the last call, which shows that
+    the spin outlasted the enqueue; otherwise the spin doubles and the run
+    is repeated.  The median over ``runs`` runs that count, or None if no
+    spin up to 2^30 cycles (~0.5 s) outlasts the enqueue: then a call
+    waits on the device, and its device time is not taken.  Inputs stay in
+    L2 between calls, as they come to attention from the projection just
+    before it."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    spin, times = 1 << 20, []                     # cycles, ~0.5 ms
+    while len(times) < runs:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued_behind_spin = not start.query()
+        end.synchronize()
+        if queued_behind_spin:
+            times.append(start.elapsed_time(end) / reps)
+        elif spin >= 1 << 30:
+            return None
+        else:
+            spin *= 2
+    return statistics.median(times)
+
+
+def show(ms) -> str:
+    return "not taken, a call waits on the device" if ms is None else f"{ms:.4f} ms"
 
 
 def attended_pairs(S: int, causal: bool, window) -> int:
@@ -168,7 +223,7 @@ def phase_device():
     print(f"card: {card_line()}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
-    libraries = (fa.LIBRARY, ssd.LIBRARY)
+    libraries = (fa.SM90_LIBRARY, fa.LIBRARY, ssd.LIBRARY)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libraries)) as pool:   # one nvcc each, together
         list(pool.map(lambda lib: lib.build(), libraries))
@@ -191,17 +246,24 @@ def phase_kernel():
         q = torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype)
         k = torch.randn(B, S, KH, D, generator=g, device="cuda").to(dtype)
         v = torch.randn(B, S, KH, D, generator=g, device="cuda").to(dtype)
+        before = dict(fa.BODY_LAUNCHES)
         out = ops.flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
+        ran = [body for body, n in fa.BODY_LAUNCHES.items() if n != before[body]]
+        if ran != [fa.BODIES[dtype].name]:
+            raise SystemExit(f"{name}: {dtype} ran the bodies {ran}, want "
+                             f"{fa.BODIES[dtype].name}")
         ref = ops.flash_attention_plain(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
         err = (out.float() - ref.float()).abs().max().item()
 
-        ms = median_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
-                                                   window=window), reps=20)
-        plain_ms = median_ms(lambda: ops.flash_attention_plain(
-            q, k, v, causal=causal, window=window), reps=5)
+        kernel = lambda: ops.flash_attention(q, k, v, causal=causal,  # noqa: E731
+                                             window=window)
+        plain = lambda: ops.flash_attention_plain(  # noqa: E731
+            q, k, v, causal=causal, window=window)
+        ms = median_ms(kernel, reps=20)
+        plain_ms = median_ms(plain, reps=5)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         if window is None:
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -216,13 +278,19 @@ def phase_kernel():
         lib_err = (lib().transpose(1, 2).float() - ref.float()).abs().max().item()
         library_ms = median_ms(lib, reps=20)
         bound_ms, bound_by = bound(shape, dtype, causal, window)
+        dev = dict(device_ms=device_ms(kernel, reps=20),
+                   plain_device_ms=device_ms(plain, reps=5),
+                   library_device_ms=device_ms(lib, reps=20))
         print(f"{name}: B={B} S={S} H={H} KH={KH} D={D} {dtype} causal={causal} "
-              f"window={window} max_abs_err={err:.3g} (tol {tol}) kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms "
-              f"(err {lib_err:.3g}), bound {bound_ms:.4f} ms by {bound_by}")
+              f"window={window} body {BODY_NAMES[ran[0]]} max_abs_err={err:.3g} "
+              f"(tol {tol}) a single call: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms (err {lib_err:.3g}), "
+              f"bound {bound_ms:.4f} ms by {bound_by}; device: kernel "
+              f"{show(dev['device_ms'])}, plain {show(dev['plain_device_ms'])}, "
+              f"sdpa {show(dev['library_device_ms'])}")
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by,
-                             library_ms=library_ms)
+                             library_ms=library_ms, **dev)
     return results
 
 
@@ -261,18 +329,26 @@ def phase_ssd_kernel():
         torch.testing.assert_close(hf, hfr, rtol=tol, atol=tol)
         err = max((y.float() - yr.float()).abs().max().item(),
                   (hf - hfr).abs().max().item())
-        ms = median_ms(lambda: ops.ssd_scan(x, dt, A, Bm, Cm, h0=h0), reps=20)
-        plain_ms = median_ms(lambda: ops.ssd_scan_plain(x, dt, A, Bm, Cm, h0=h0),
-                             reps=5)
+        kernel = lambda: ops.ssd_scan(x, dt, A, Bm, Cm, h0=h0)  # noqa: E731
+        plain = lambda: ops.ssd_scan_plain(x, dt, A, Bm, Cm, h0=h0)  # noqa: E731
+        ms = median_ms(kernel, reps=20)
+        plain_ms = median_ms(plain, reps=5)
         bound_ms, bound_by = ssd_bound(shape, dtype, h0 is not None)
+        # the plain version one call at a time: a call launches ~30 kernels
+        # a chunk, and a few calls' worth would fill the device's queue of
+        # pending launches, where the host waits whatever the spin
+        dev = dict(device_ms=device_ms(kernel, reps=20),
+                   plain_device_ms=device_ms(plain, reps=1),
+                   library_device_ms=None)
         print(f"{name}: B={B} S={S} H={H} P={P} N={N} {dtype} h0={h0_kind} "
               f"x strides {x.stride()} B strides {Bm.stride()} "
-              f"max_abs_err={err:.3g} (rtol = atol = {tol}) kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, no library call, bound {bound_ms:.4f} ms "
-              f"by {bound_by}")
+              f"max_abs_err={err:.3g} (rtol = atol = {tol}) a single call: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, no library call, bound "
+              f"{bound_ms:.4f} ms by {bound_by}; device: kernel "
+              f"{show(dev['device_ms'])}, plain {show(dev['plain_device_ms'])}")
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by,
-                             library_ms=None)
+                             library_ms=None, **dev)
     name, shape, dtype, h0_kind, packed, tol = SSD_SEQUENTIAL_CASE
     x, dt, A, Bm, Cm, h0 = ssd_inputs(shape, dtype, h0_kind, packed, 7)
     y, hf = ops.ssd_scan(x, dt, A, Bm, Cm, h0=h0)
@@ -305,16 +381,21 @@ def run_serve(arch: str):
     torch.cuda.reset_peak_memory_stats()
     ops.flash_attention.launches = 0      # the main path starts here
     ops.ssd_scan.launches = 0
+    for body in fa.BODY_LAUNCHES:
+        fa.BODY_LAUNCHES[body] = 0
     out = generate(model, cfg, prompt, gen=SERVE["gen"], window=None,
                    temperature=0.0, generator=g)
     launches = {"flash_attention": ops.flash_attention.launches,
                 "ssd_scan": ops.ssd_scan.launches}
+    bodies = dict(fa.BODY_LAUNCHES)
     B = SERVE["batch"]
     want = {"flash_attention": cfg.num_layers if cfg.has_attention else 0,
             "ssd_scan": cfg.num_layers if cfg.has_ssm else 0}
     if launches != want:
         raise SystemExit(f"kernel launches {launches} over the serve, want "
                          f"{want}")
+    if bodies[fa.LIBRARY.name]:     # bf16 serves: every launch on the sm90 body
+        raise SystemExit(f"flash bodies {bodies}: the f32 body ran in a serve")
     if out.tokens.shape != (B, SERVE["gen"] + 1):
         raise SystemExit(f"tokens of shape {tuple(out.tokens.shape)}")
     if int(out.tokens.min()) < 0 or int(out.tokens.max()) >= cfg.vocab_size:
@@ -325,7 +406,7 @@ def run_serve(arch: str):
           f"{SERVE['prompt_len']}), decode {B * SERVE['gen'] / out.decode_s:.1f} "
           f"tok/s ({SERVE['gen']} steps x {B} seqs in {out.decode_s:.3f}s), "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-          f"launches {launches}")
+          f"launches {launches}, flash bodies {bodies}")
     print("sample:", out.tokens[0, :16].tolist())
     print("where the time goes (torch.profiler):")
     profile_serve(cfg, model, prompt)
@@ -358,9 +439,12 @@ def profile_serve(cfg, model, prompt, steps: int = 8):
         print(f"{cfg.name} {label}: wall {wall:.2f} ms, profiled {wall_prof:.2f} ms, "
               f"device busy {busy:.2f} ms in {launches} kernels "
               f"(idle share {1 - busy / wall_prof:.1%} of the profiled wall)")
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
-            print(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} "
-                  f"{e.key[:90]}")
+        ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+        # the top six, then the port's own kernels wherever they rank
+        for rank, e in enumerate(ranked):
+            if rank < 6 or any(name in e.key for name in PORT_KERNELS):
+                print(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} "
+                      f"({e.self_device_time_total / 1e3 / busy:.1%}) {e.key[:90]}")
 
     def do_prefill():
         cache = init_cache(cfg, B, P + steps, dtype=torch.float32,
@@ -424,8 +508,11 @@ def main() -> int:
     phase_gpu_vs_cpu()
 
     kernels = [
+        # the main path's body (bf16) is the source; f32 runs the other
         dict(name="flash_attention", route="cuda",
-             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             source="src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+             sources=["src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+                      "src/repro_torch/kernels/csrc/flash_attention.cu"],
              replaces="src/repro/kernels/flash_attention.py:30",
              launches=launches["flash_attention"],
              **flash_timings[KERNEL_CASES[0][0]]),

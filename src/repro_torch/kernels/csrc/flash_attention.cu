@@ -1,19 +1,22 @@
-// Flash-attention forward for Hopper (sm_90a), plain C interface for ctypes.
+// Flash-attention forward in f32 on the CUDA cores (sm_90a), plain C
+// interface for ctypes.
 //
-// Replaces the Pallas TPU kernel `_flash_kernel` in
+// Replaces, for f32 inputs, the Pallas TPU kernel `_flash_kernel` in
 // src/repro/kernels/flash_attention.py (driven by `flash_attention_bhsd`,
-// wrapped by `repro.kernels.ops.flash_attention`).  It computes the same
-// function: causal, optionally sliding-window softmax attention with an
-// online softmax whose running max `m`, sum `l` and accumulator `acc` stay
-// in f32; q is scaled by D**-0.5 before Q K^T; masked scores are -1e30; the
-// output is acc / max(l, 1e-30) in the input dtype.
+// wrapped by `repro.kernels.ops.flash_attention`); bf16 inputs, the
+// serving path's, go to the tensor-core kernel in flash_attention_sm90.cu.
+// It computes the same function: causal, optionally sliding-window
+// softmax attention with an online softmax whose running max `m`, sum `l`
+// and accumulator `acc` stay in f32; q is scaled by D**-0.5 before Q K^T;
+// masked scores are -1e30; the output is acc / max(l, 1e-30).  Every
+// product is a full-f32 FMA: TF32 tensor-core products would miss the f32
+// tolerance (2e-4) this kernel is held to.
 //
 // Layout.  q is (B, S, H, D) and k, v are (B, S, KH, D), all contiguous,
 // exactly as the model holds them, so no transpose happens around the call.
 // GQA is native: query head h reads KV head h / (H / KH), with no repeated
 // copy of K and V.  Any S works: rows and keys past S are masked, where the
-// TPU kernel asserted S % block == 0.  D is 64 or 128; inputs are f32 or
-// bf16.
+// TPU kernel asserted S % block == 0.  D is 64 or 128.
 //
 // Design.  One thread block of 256 threads per (batch*head, tile of 64
 // query rows).  Tiles are launched heaviest first, so the long causal rows
@@ -26,21 +29,13 @@
 // more.  Row max and row sum are reduced over the 16 threads of a row with
 // warp shuffles.
 //
-// Bound on the H100 (SXM, 3.35 TB/s, 989 TFLOP/s bf16 dense).  At the
-// serving shape B*H = 128, S = 512, D = 64 in bf16, q, k, v and o are
-// 4 * 128 * 512 * 64 * 2 B = 33.6 MB, about 10 us at 3.35 TB/s; the causal
-// work is 4 * D * S (S + 1) / 2 * B*H = 4.3 GFLOP, about 4.3 us at
-// 989 TFLOP/s.  The work is bound by memory at ~10 us.  The design keeps
-// the S x S scores out of device memory (they live only as a 64 x 64 tile
-// in shared memory) and reads each K/V tile once per query tile that needs
-// it; at this shape q, k and v (25 MB) fit in the 50 MB L2, so those
-// re-reads need not reach HBM.  This first version multiplies on the CUDA
-// cores in f32, not on the tensor cores, so its arithmetic, not the memory,
-// limits it today (0.31-0.35 ms on an H100 at 700 W, chip_smoke.py): moving
-// QK^T and PV to wgmma with TMA-fed tiles is the later step that brings it
-// towards the memory bound.
+// Bound on the H100 (SXM, 3.35 TB/s, 67 TFLOP/s f32 outside the tensor
+// cores).  In f32 the causal work, 4 * D * S (S + 1) / 2 per (batch, head),
+// bounds it: at B*H = 16, S = 256, D = 128 that is 0.27 GFLOP, about 4 us,
+// against 8.4 MB, 2.5 us.  The kernel keeps the S x S scores out of device
+// memory (only a 64 x 64 tile lives in shared memory) and reads each K/V
+// tile once per query tile that needs it.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -50,20 +45,15 @@ constexpr int BK = 64;        // keys per KV tile
 constexpr int THREADS = 256;  // 16 x 16 threads over the 64 x 64 score tile
 constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-
 template <int D>
 constexpr size_t smem_bytes() {
   return (size_t)(3 * BQ * (D + 1) + BQ * (BK + 1)) * sizeof(float);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  int S, int H, int KH, int causal, int window, float scale) {
   constexpr int LD = D + 1;   // padded row stride of the f32 tiles
   constexpr int LP = BK + 1;  // padded row stride of P
@@ -85,15 +75,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = qt * BQ;
   const long long q_stride = (long long)H * D;    // between sequence positions
   const long long kv_stride = (long long)KH * D;
-  const T* qb = q + ((long long)b * S * H + h) * D;
-  const T* kb = k + ((long long)b * S * KH + kh) * D;
-  const T* vb = v + ((long long)b * S * KH + kh) * D;
-  T* ob = o + ((long long)b * S * H + h) * D;
+  const float* qb = q + ((long long)b * S * H + h) * D;
+  const float* kb = k + ((long long)b * S * KH + kh) * D;
+  const float* vb = v + ((long long)b * S * KH + kh) * D;
+  float* ob = o + ((long long)b * S * H + h) * D;
 
   for (int idx = tid; idx < BQ * D; idx += THREADS) {
     const int r = idx / D, d = idx - (idx / D) * D;
     const int s = q0 + r;
-    Qs[r * LD + d] = s < S ? to_f32(qb[s * q_stride + d]) * scale : 0.f;
+    Qs[r * LD + d] = s < S ? qb[s * q_stride + d] * scale : 0.f;
   }
 
   // KV range this tile needs: [kv_begin, kv_end)
@@ -119,8 +109,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = idx / D, d = idx - (idx / D) * D;
       const int s = k0 + r;
       const bool in = s < S;
-      Ks[r * LD + d] = in ? to_f32(kb[s * kv_stride + d]) : 0.f;
-      Vs[r * LD + d] = in ? to_f32(vb[s * kv_stride + d]) : 0.f;
+      Ks[r * LD + d] = in ? kb[s * kv_stride + d] : 0.f;
+      Vs[r * LD + d] = in ? vb[s * kv_stride + d] : 0.f;
     }
     __syncthreads();
 
@@ -197,43 +187,36 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (s < S) {
       const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) store(&ob[s * q_stride + tc + 16 * j], acc[i][j] / denom);
+      for (int j = 0; j < DJ; ++j) ob[s * q_stride + tc + 16 * j] = acc[i][j] / denom;
     }
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
+template <int D>
+cudaError_t launch(const float* q, const float* k, const float* v, float* o, int B,
                    int S, int H, int KH, int causal, int window, float scale,
                    cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
+  constexpr size_t smem = smem_bytes<D>();
+  // set once per instantiation, not on every launch (the port drives one card)
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return attr;
   const dim3 grid((S + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, H, KH, causal, window, scale);
+  flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(q, k, v, o, S, H, KH, causal,
+                                                       window, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success).  dtype: 0 = f32,
-// 1 = bf16.  window <= 0 means no window.  The caller checks shapes,
-// dtypes, contiguity and that H % KH == 0.
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, int B, int S, int H, int KH, int D,
-                                   int dtype, int causal, int window,
-                                   float scale, void* stream) {
+// Returns the cudaError_t of the launch (0 on success).  f32 only.  window
+// <= 0 means no window.  The caller checks shapes, dtypes, contiguity and
+// that H % KH == 0.
+extern "C" int flash_attention_fwd(const float* q, const float* k, const float* v,
+                                   float* o, int B, int S, int H, int KH, int D,
+                                   int causal, int window, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64 && dtype == 0)
-    return launch<float, 64>(q, k, v, o, B, S, H, KH, causal, window, scale, st);
-  if (D == 64 && dtype == 1)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, B, S, H, KH, causal, window, scale, st);
-  if (D == 128 && dtype == 0)
-    return launch<float, 128>(q, k, v, o, B, S, H, KH, causal, window, scale, st);
-  if (D == 128 && dtype == 1)
-    return launch<__nv_bfloat16, 128>(q, k, v, o, B, S, H, KH, causal, window, scale, st);
+  if (D == 64) return launch<64>(q, k, v, o, B, S, H, KH, causal, window, scale, st);
+  if (D == 128) return launch<128>(q, k, v, o, B, S, H, KH, causal, window, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,9 @@
-"""Load and launch the Hopper flash-attention forward kernel.
+"""Load and launch the Hopper flash-attention forward kernels.
 
-``csrc/flash_attention.cu`` is built and loaded by ``kernels/build.py`` at
+Two bodies compute the same function, chosen by dtype with no fallback
+between them: bf16 runs the tensor-core kernel (``csrc/flash_attention_sm90.cu``,
+``wgmma`` fed by TMA), f32 the CUDA-core kernel (``csrc/flash_attention.cu``,
+full-f32 products).  Each is built and loaded by ``kernels/build.py`` at
 first use; nothing is built or loaded at import.
 """
 from __future__ import annotations
@@ -12,25 +15,30 @@ import torch
 from repro_torch.kernels.build import KernelLibrary
 
 HEAD_DIMS = (64, 128)
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _bind(lib: ctypes.CDLL) -> None:
+    """Both bodies export ``flash_attention_fwd`` with one signature."""
     fn = lib.flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
 
 
-LIBRARY = KernelLibrary("flash_attention", _bind)
+LIBRARY = KernelLibrary("flash_attention", _bind)              # f32, CUDA cores
+SM90_LIBRARY = KernelLibrary("flash_attention_sm90", _bind)    # bf16, wgmma + TMA
+BODIES = {torch.float32: LIBRARY, torch.bfloat16: SM90_LIBRARY}
+# launches of each body, by library name: ``ops.flash_attention.launches``
+# counts both together, this tells them apart
+BODY_LAUNCHES = {LIBRARY.name: 0, SM90_LIBRARY.name: 0}
 
 
 def check_inputs(q, k, v, window) -> None:
-    """Raise on anything the kernel does not take."""
+    """Raise on anything the kernels do not take."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention kernel: q, k, v must be on one "
                          "CUDA device")
-    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in BODIES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention kernel takes f32 or bf16 for all "
                          f"of q, k, v, got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
@@ -50,6 +58,9 @@ def check_inputs(q, k, v, window) -> None:
                          f"{HEAD_DIMS}, got {D}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel takes contiguous q, k, v")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention bf16 kernel reads q, k, v with TMA, "
+                         "which needs 16-byte aligned data")
     if B * H > 65535 or S < 1:
         raise ValueError(f"flash_attention kernel: B*H={B * H} must be at "
                          f"most 65535 and S={S} at least 1")
@@ -58,22 +69,26 @@ def check_inputs(q, k, v, window) -> None:
 
 
 def launch(q, k, v, *, causal: bool, window) -> torch.Tensor:
-    """Run the kernel on CUDA tensors q (B, S, H, D), k, v (B, S, KH, D).
+    """Run the dtype's kernel on CUDA tensors q (B, S, H, D), k, v (B, S, KH, D).
 
     Allocates the output, launches on the current stream and raises if
-    the launch was refused.  Does not synchronise.
+    the launch was refused.  Does not synchronise.  ``BODY_LAUNCHES``
+    counts it under the body's name.
     """
     check_inputs(q, k, v, window)
-    lib = LIBRARY.load()
+    body = BODIES[q.dtype]
+    fn = body.load().flash_attention_fwd
     B, S, H, D = q.shape
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, S, H, k.shape[2], D, DTYPES[q.dtype], int(causal),
-            0 if window is None else int(window), D ** -0.5, stream)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 B, S, H, k.shape[2], D, int(causal),
+                 0 if window is None else int(window), D ** -0.5, stream)
+    if err < 0:
+        raise RuntimeError(f"flash_attention kernel: TMA tensor map encoding "
+                           f"failed: CUresult {-err}")
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: "
-                           f"cudaError {err}")
+        raise RuntimeError(f"{body.name} kernel launch failed: cudaError {err}")
+    BODY_LAUNCHES[body.name] += 1
     return out

@@ -3,7 +3,7 @@
 In a fresh interpreter whose ``sys.meta_path`` refuses ``jax``, ``jaxlib``
 and ``repro`` (matched on the whole first name, so ``repro_torch`` passes),
 every module of ``repro_torch`` and ``chip_smoke.py`` import, and importing
-``chip_smoke.py`` builds, loads and launches neither kernel.
+``chip_smoke.py`` builds, loads and launches no kernel.
 """
 import os
 import subprocess
@@ -38,8 +38,10 @@ smoke = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(smoke)
 
 from repro_torch.kernels import flash_attention, ops, ssd_scan
-for kernel in (flash_attention, ssd_scan):
-    assert kernel.LIBRARY.lib is None and kernel.LIBRARY.build_seconds is None
+for lib in (flash_attention.LIBRARY, flash_attention.SM90_LIBRARY,
+            ssd_scan.LIBRARY):
+    assert lib.lib is None and lib.build_seconds is None
+assert not any(flash_attention.BODY_LAUNCHES.values())
 assert ops.flash_attention.launches == 0 and ops.ssd_scan.launches == 0
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
