@@ -19,14 +19,19 @@ stops with a non-zero exit at the first phase that fails:
    and the least time the card could take, then the device time per
    call of the kernel, the plain version and SDPA (calls queued back to
    back between CUDA events, the host's enqueue left out);
-3. the SSD scan kernel against its plain version (``ssd_chunked``) at
-   ``mamba2-130m``'s and ``hymba-1.5b``'s serving shapes, both with
-   contiguous inputs and with x, B and C split from one packed tensor as
-   ``apply_mamba`` passes them, and at bf16, ragged and non-zero
-   initial-state shapes, and once against the
-   sequential recurrence; each with a single call's time, the plain
-   version's and the least time the card could take (no single PyTorch
-   call computes it), then the device times per call, as for flash;
+3. the SSD scan (two kernels a call, ``ssd_scan.cu``: C Bᵀ per batch
+   and chunk, then the scan on the tensor cores in 3xTF32) against its
+   plain version (``ssd_chunked``) at ``mamba2-130m``'s and
+   ``hymba-1.5b``'s serving shapes, both with contiguous inputs and with
+   x, B and C split from one packed tensor as ``apply_mamba`` passes
+   them, at ``mamba2-130m``'s width with a live initial state and with a
+   ragged S = 500, and at bf16, ragged and non-zero initial-state shapes,
+   and once against the sequential recurrence; each with the tile of P
+   rows and the blocks per SM the launch picked, a single call's time,
+   the plain version's and the least time the card could take at the
+   CUDA cores' f32 rate and at the tensor cores' 3xTF32 rate (no single
+   PyTorch call computes it), then the device times per call, as for
+   flash;
 4. ``gwtf-llama-300m``, ``tinyllama-1.1b``, ``mamba2-130m`` and
    ``hymba-1.5b`` served at full width (bf16 params, f32 cache, batch 8,
    prompt 512, 32 greedy tokens) through
@@ -48,8 +53,7 @@ GPU or outside a checkout of the repository.
 from __future__ import annotations
 
 import json
-import statistics
-import subprocess
+import re
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -69,6 +73,8 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.kernels.ref import ssd_reference  # noqa: E402
+from repro_torch.kernels.timing import (card_line, device_ms,  # noqa: E402
+                                        median_ms, show)
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models.transformer import (decode_step, init_cache,  # noqa: E402
                                             prefill)
@@ -76,6 +82,8 @@ from repro_torch.models.transformer import (decode_step, init_cache,  # noqa: E4
 # NVIDIA H100 SXM data sheet, dense: HBM rate and peak rates by input type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# f32 products on the tensor cores as 3xTF32: three TF32 passes at 495 TFLOP/s
+PEAK_FLOPS_3XTF32 = 495e12 / 3
 
 # name, (B, S, H, KH, D), dtype, causal, window, tolerance (rtol = atol)
 KERNEL_CASES = [
@@ -108,6 +116,11 @@ SSD_CASES = [
      "zero", False, 2e-3),
     ("serve hymba-1.5b contiguous", (8, 512, 50, 64, 16), torch.float32, "zero",
      False, 2e-3),
+    # decode after a prefill: the state the cache carries is live
+    ("serve mamba2-130m packed live h0", (8, 512, 24, 64, 128), torch.float32,
+     "random", True, 2e-3),
+    ("serve mamba2-130m packed ragged S=500", (8, 500, 24, 64, 128),
+     torch.float32, "zero", True, 2e-3),
     ("bf16", (2, 256, 3, 32, 64), torch.bfloat16, "none", False, 2e-1),
     ("ragged S=100", (2, 100, 4, 64, 128), torch.float32, "none", False, 2e-3),
     ("h0 != 0", (2, 192, 4, 48, 40), torch.float32, "random", False, 2e-3),
@@ -116,73 +129,12 @@ SSD_SEQUENTIAL_CASE = ("sequential oracle", (1, 96, 2, 16, 8), torch.float32,
                        "random", False, 2e-3)
 BODY_NAMES = {"flash_attention_sm90": "tensor-core bf16 (flash_attention_sm90.cu)",
               "flash_attention": "CUDA-core f32 (flash_attention.cu)"}
-PORT_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_kernel", "ssd_scan_kernel")
+PORT_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_kernel", "ssd_cb_kernel",
+                "ssd_scan_tf32_kernel")
 SERVE = dict(batch=8, prompt_len=512, gen=32)
 # a prefill launches the flash kernel once per attention layer and the SSD
 # kernel once per SSM layer; decode launches neither
 SERVE_ARCHS = ["gwtf-llama-300m", "tinyllama-1.1b", "mamba2-130m", "hymba-1.5b"]
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-
-
-def median_ms(fn, reps: int, warmup: int = 3) -> float:
-    """Median over ``reps`` single calls, each timed with CUDA events: the
-    host's enqueue is inside the window, so for a kernel shorter than its
-    wrapper's host work this measures the host."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def device_ms(fn, reps: int, runs: int = 3, warmup: int = 3):
-    """Device time per call: ``reps`` calls between two CUDA events, queued
-    behind a spin kernel so that the device runs them back to back and the
-    host's enqueue stays out.  A run counts only if the start event was
-    still pending when the host had queued the last call, which shows that
-    the spin outlasted the enqueue; otherwise the spin doubles and the run
-    is repeated.  The median over ``runs`` runs that count, or None if no
-    spin up to 2^30 cycles (~0.5 s) outlasts the enqueue: then a call
-    waits on the device, and its device time is not taken.  Inputs stay in
-    L2 between calls, as they come to attention from the projection just
-    before it."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    spin, times = 1 << 20, []                     # cycles, ~0.5 ms
-    while len(times) < runs:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(spin)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        queued_behind_spin = not start.query()
-        end.synchronize()
-        if queued_behind_spin:
-            times.append(start.elapsed_time(end) / reps)
-        elif spin >= 1 << 30:
-            return None
-        else:
-            spin *= 2
-    return statistics.median(times)
-
-
-def show(ms) -> str:
-    return "not taken, a call waits on the device" if ms is None else f"{ms:.4f} ms"
 
 
 def attended_pairs(S: int, causal: bool, window) -> int:
@@ -201,21 +153,32 @@ def bound(shape, dtype, causal, window):
 
 
 def ssd_bound(shape, dtype, h0: bool):
-    """Least time for the SSD scan.  Bytes: x and y in their dtype, dt f32,
-    B and C, A, h0 (if given) and h_final f32, each once.  Operations: the
-    causal (row t, row s <= t) pairs of each chunk of 64, Q (Q + 1) / 2 for a
-    chunk of Q rows (a ragged last chunk counts at its length), each 2 N for
-    C B^T, once per (b, chunk) since B and C are shared across heads, and
-    2 P for M x per (b, h); then per (b, h) the state's output and update,
-    2 P N per row each."""
+    """Least time for the SSD scan, at two rates of arithmetic: ``f32``
+    with every product on the CUDA cores, and ``3xtf32``, the kernel's,
+    with C B^T there and the chunk products on the tensor cores in
+    3xTF32.  Bytes: x and y in their dtype, dt f32, B and C, A, h0 (if
+    given) and h_final f32, each once.  Operations: the causal (row t,
+    row s <= t) pairs of each chunk of 64, Q (Q + 1) / 2 for a chunk of Q
+    rows (a ragged last chunk counts at its length), each 2 N for C B^T,
+    once per (b, chunk) since B and C are shared across heads, and 2 P for
+    M x per (b, h); then per (b, h) the state's output and update, 2 P N
+    per row each.  Returns {rate: (ms, "bytes" or "operations")}."""
     B, S, H, P, N = shape
     elem = torch.tensor([], dtype=dtype).element_size()
     nbytes = ((2 * B * S * H * P + 2 * B * S * N) * elem + (B * S * H + H) * 4
               + (2 if h0 else 1) * B * H * P * N * 4)
     pairs = sum(q * (q + 1) // 2 for q in (min(64, S - c) for c in range(0, S, 64)))
-    flops = 2 * pairs * N * B + 2 * pairs * P * B * H + 4 * S * P * N * B * H
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[torch.float32]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    cb_flops = 2 * pairs * N * B
+    chunk_flops = 2 * pairs * P * B * H + 4 * S * P * N * B * H
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    bounds = {}
+    for rate, t_ops in (
+            ("f32", (cb_flops + chunk_flops) / PEAK_FLOPS[torch.float32]),
+            ("3xtf32", cb_flops / PEAK_FLOPS[torch.float32]
+             + chunk_flops / PEAK_FLOPS_3XTF32)):
+        bounds[rate] = (max(t_bytes, t_ops) * 1e3,
+                        "bytes" if t_bytes >= t_ops else "operations")
+    return bounds
 
 
 def phase_device():
@@ -232,9 +195,25 @@ def phase_device():
     print(f"kernels built and loaded in {time.perf_counter() - t0:.1f}s")
     for lib in libraries:
         print(f"{lib.name} kernel built in {lib.build_seconds or 0.0:.1f}s")
+        kernel = ""
         for line in lib.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                print("  ptxas:", line.strip())
+            if "Compiling entry function" in line:
+                kernel = ptxas_kernel(line)
+            elif "registers" in line or "spill" in line:
+                print(f"  ptxas: {kernel}: {line.split(':')[-1].strip()}")
+
+
+def ptxas_kernel(line: str) -> str:
+    """'name<type, ints>' of the kernel a ptxas 'Compiling entry function'
+    line names (its mangled name, template arguments and all)."""
+    mangled = line.split("'")[1] if line.count("'") >= 2 else line
+    name = next((n for n in PORT_KERNELS if n in mangled), None)
+    if name is None:
+        return mangled[:60]
+    args = mangled.split(name, 1)[1].split("EEv", 1)[0]
+    dtype = "bf16" if "bfloat16" in args else "f32" if args[1:2] == "f" else ""
+    ints = re.findall(r"Li(\d+)E", args)
+    return f"{name}<{', '.join(filter(None, [dtype, *ints]))}>"
 
 
 def phase_kernel():
@@ -321,19 +300,23 @@ def phase_ssd_kernel():
     for name, shape, dtype, h0_kind, packed, tol in SSD_CASES:
         B, S, H, P, N = shape
         x, dt, A, Bm, Cm, h0 = ssd_inputs(shape, dtype, h0_kind, packed, S + H + N)
+        before = ops.ssd_scan.launches
         y, hf = ops.ssd_scan(x, dt, A, Bm, Cm, h0=h0)
         torch.cuda.synchronize()
+        launches = ops.ssd_scan.launches - before
         yr, hfr = ops.ssd_scan_plain(x, dt, A, Bm, Cm, h0=h0)
         torch.cuda.synchronize()
         torch.testing.assert_close(y.float(), yr.float(), rtol=tol, atol=tol)
         torch.testing.assert_close(hf, hfr, rtol=tol, atol=tol)
         err = max((y.float() - yr.float()).abs().max().item(),
                   (hf - hfr).abs().max().item())
+        plan = ssd.plan(B, H, P, N, dtype)
         kernel = lambda: ops.ssd_scan(x, dt, A, Bm, Cm, h0=h0)  # noqa: E731
         plain = lambda: ops.ssd_scan_plain(x, dt, A, Bm, Cm, h0=h0)  # noqa: E731
         ms = median_ms(kernel, reps=20)
         plain_ms = median_ms(plain, reps=5)
-        bound_ms, bound_by = ssd_bound(shape, dtype, h0 is not None)
+        bounds = ssd_bound(shape, dtype, h0 is not None)
+        bound_ms, bound_by = bounds["3xtf32"]   # the kernel's arithmetic
         # the plain version one call at a time: a call launches ~30 kernels
         # a chunk, and a few calls' worth would fill the device's queue of
         # pending launches, where the host waits whatever the spin
@@ -342,10 +325,18 @@ def phase_ssd_kernel():
                    library_device_ms=None)
         print(f"{name}: B={B} S={S} H={H} P={P} N={N} {dtype} h0={h0_kind} "
               f"x strides {x.stride()} B strides {Bm.stride()} "
-              f"max_abs_err={err:.3g} (rtol = atol = {tol}) a single call: kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, no library call, bound "
-              f"{bound_ms:.4f} ms by {bound_by}; device: kernel "
+              f"max_abs_err={err:.3g} (rtol = atol = {tol}); tile of "
+              f"{plan['tile_p']} P rows, {plan['stages']} stages, {plan['blocks']} "
+              f"blocks, {plan['blocks_per_sm']} a SM ({plan['smem']} B shared "
+              f"memory); "
+              f"ssd_scan.launches +{launches} a call, 2 kernels (ssd_cb_kernel, "
+              f"ssd_scan_tf32_kernel); a single call: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, no library call; bound {bound_ms:.4f} ms by "
+              f"{bound_by} at 3xTF32, {bounds['f32'][0]:.4f} ms by "
+              f"{bounds['f32'][1]} at f32; device: kernel "
               f"{show(dev['device_ms'])}, plain {show(dev['plain_device_ms'])}")
+        if launches != 1:
+            raise SystemExit(f"{name}: ssd_scan.launches rose by {launches}")
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by,
                              library_ms=None, **dev)

@@ -37,12 +37,14 @@ def _nvcc() -> str:
 
 
 class KernelLibrary:
-    """One kernel's shared library: built from ``csrc/<name>.cu`` on first
-    ``load()``; ``bind`` sets the C entry points' argument types."""
+    """One kernel's shared library: built from ``csrc/<name>.cu`` (or from
+    ``source``, an altered copy of it) on first ``load()``; ``bind`` sets
+    the C entry points' argument types."""
 
-    def __init__(self, name: str, bind: Callable[[ctypes.CDLL], None]):
+    def __init__(self, name: str, bind: Callable[[ctypes.CDLL], None],
+                 source: Path | None = None):
         self.name = name
-        self.source = CSRC / f"{name}.cu"
+        self.source = source or CSRC / f"{name}.cu"
         self.bind = bind
         self.lib = None
         self.build_seconds = None   # wall time of the build this process ran, if any

@@ -60,7 +60,8 @@ def ssd_scan(x, dt, A, Bm, Cm, *, h0=None):
     Returns (y (B, S, H, P) in x's dtype, h_final (B, H, P, N) f32).
     Counterpart of ``repro.kernels.ops.ssd_scan``, with an initial state.
     On CUDA the kernel reads x, Bm and Cm in place through their strides;
-    ``ssd_scan.launches`` counts the kernel's launches.
+    ``ssd_scan.launches`` counts the calls that launched it, each of which
+    launches two kernels (C Bᵀ, then the scan).
     """
     if x.is_cuda:
         out = _ssd.launch(x, dt, A, Bm, Cm, h0)
