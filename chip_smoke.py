@@ -45,15 +45,42 @@ stops with a non-zero exit at the first phase that fails:
 5. the port on the GPU against the port on the CPU, reduced f32 models of
    all four families' configs on the same weights: logits within 1e-3,
    greedy streams equal;
-6. a JSON line of the kernels, then the card, then the result line.
+6. training, the port's second main path: ``gwtf-llama-300m`` at full
+   width (16 layers, bf16 params) through ``repro_torch.launch.train``'s
+   ``build_gwtf`` and ``train_iteration``, 4 stages x 3 relays of capacity
+   4, 2 data nodes with 4 microbatches of 4 sequences of 512 tokens each,
+   3 iterations at churn 0 (a warm-up, one timed, one under
+   ``torch.profiler``: device busy time, idle share, top kernels) and 3 at
+   churn 0.1, each with its loss, completed/launched/dropped/rerouted, wall ms
+   and tokens/s, the trainer's counter invariants held, every loss
+   finite, and the kernels' launches counted over the run (the training
+   path attends through ``_online_attention``, which autograd
+   differentiates, and launches neither kernel); the peak memory, and the
+   time of the gradient screen's host copy of one stage's gradient tree
+   (the screen runs only under corrupt-gradient churn); then, reduced, in
+   a child process with ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` and
+   ``torch.use_deterministic_algorithms(True)`` (which the serves above
+   run without), churn 0 against ``CentralizedTrainer`` and the fused path
+   against remat, bit for bit in losses and every parameter, f32 and
+   bf16; and three reduced f32 iterations on cuda against the cpu:
+   counters equal, each loss within ``TRAIN_LOSS_RTOL``, the AdamW
+   moments (which see the gradients' magnitudes) within
+   ``TRAIN_MOMENT_RTOL`` after the first and the third, the parameters
+   after the first as stated at ``TRAIN_PARAM_TOL``;
+7. a JSON line of the kernels, then the card, then the result line.
 
 It needs no network and exits non-zero, printing no result, without a
 GPU or outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
+import math
+import os
 import re
+import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -62,22 +89,30 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.flow.graph import geo_distributed_network  # noqa: E402
 from repro_torch.core.runtime.serving import serving_inputs  # noqa: E402
+from repro_torch.core.runtime.trainer import (CentralizedTrainer,  # noqa: E402
+                                              RuntimeTrainer)
+from repro_torch.core.sim.faults import BernoulliChurn, TraceChurn  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, DataNodeShard  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.kernels.ref import ssd_reference  # noqa: E402
 from repro_torch.kernels.timing import (card_line, device_ms,  # noqa: E402
                                         median_ms, show)
+from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models.transformer import (decode_step, init_cache,  # noqa: E402
                                             prefill)
+from repro_torch.tree import leaves  # noqa: E402
 
 # NVIDIA H100 SXM data sheet, dense: HBM rate and peak rates by input type
 HBM_BYTES_PER_S = 3.35e12
@@ -135,6 +170,24 @@ SERVE = dict(batch=8, prompt_len=512, gen=32)
 # a prefill launches the flash kernel once per attention layer and the SSD
 # kernel once per SSM layer; decode launches neither
 SERVE_ARCHS = ["gwtf-llama-300m", "tinyllama-1.1b", "mamba2-130m", "hymba-1.5b"]
+# the training phase: launch.train's flags at full width, then the churn
+# of the last three iterations
+TRAIN_ARGS = ["--arch", "gwtf-llama-300m", "--mode", "gwtf", "--stages", "4",
+              "--relays-per-stage", "3", "--capacity", "4", "--data-nodes", "2",
+              "--microbatches", "4", "--batch", "4", "--seq-len", "512",
+              "--churn", "0.0", "--lr", "1e-3", "--seed", "0", "--device", "cuda"]
+TRAIN_ITERS, TRAIN_CHURN = 3, 0.1
+# three reduced f32 iterations on cuda against the cpu: each iteration's
+# loss within its TRAIN_LOSS_RTOL (the second and third hang on the
+# updates); the AdamW moments after the first and the third iteration,
+# linear in the aggregated gradients, within TRAIN_MOMENT_RTOL of each
+# leaf's largest magnitude (they see the gradients' magnitudes); after the
+# first, a parameter within TRAIN_PARAM_TOL, except where its gradient is
+# so near 0 that its sign differs between the devices (AdamW's first step
+# moves every weight by lr * sign(g), plus the decay), which at most
+# TRAIN_FLIP_SHARE of them may do, each by at most 2 lr
+TRAIN_LOSS_RTOL = (1e-4, 1e-3, 1e-3)
+TRAIN_MOMENT_RTOL, TRAIN_PARAM_TOL, TRAIN_FLIP_SHARE = 1e-3, 1e-5, 1e-3
 
 
 def attended_pairs(S: int, causal: bool, window) -> int:
@@ -404,38 +457,42 @@ def run_serve(arch: str):
     return launches
 
 
-def profile_serve(cfg, model, prompt, steps: int = 8):
-    """Wall time against device busy time for one prefill and ``steps``
-    greedy decode steps, and the kernels that take the device's time.
-    The profiler's own cost inflates the profiled wall time; the
-    unprofiled wall time of the same work is printed beside it."""
-    B, P = prompt.shape
-
-    def run(label, fn):
-        fn()                                             # unprofiled
-        torch.cuda.synchronize()
+def profile_run(name: str, label: str, fn):
+    """Run ``fn`` unprofiled once, then timed, then under
+    ``torch.profiler``; print the wall time against the device busy time
+    and the kernels that take the device's time.  The profiler's own cost
+    inflates the profiled wall time; the unprofiled wall time of the same
+    work is printed beside it."""
+    fn()                                             # unprofiled
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_prof = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-        busy = sum(e.self_device_time_total for e in kernels) / 1e3
-        launches = sum(e.count for e in kernels)
-        print(f"{cfg.name} {label}: wall {wall:.2f} ms, profiled {wall_prof:.2f} ms, "
-              f"device busy {busy:.2f} ms in {launches} kernels "
-              f"(idle share {1 - busy / wall_prof:.1%} of the profiled wall)")
-        ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
-        # the top six, then the port's own kernels wherever they rank
-        for rank, e in enumerate(ranked):
-            if rank < 6 or any(name in e.key for name in PORT_KERNELS):
-                print(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} "
-                      f"({e.self_device_time_total / 1e3 / busy:.1%}) {e.key[:90]}")
+        wall_prof = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    launches = sum(e.count for e in kernels)
+    print(f"{name} {label}: wall {wall:.2f} ms, profiled {wall_prof:.2f} ms, "
+          f"device busy {busy:.2f} ms in {launches} kernels "
+          f"(idle share {1 - busy / wall_prof:.1%} of the profiled wall)")
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    # the top six, then the port's own kernels wherever they rank
+    for rank, e in enumerate(ranked):
+        if rank < 6 or any(k in e.key for k in PORT_KERNELS):
+            print(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} "
+                  f"({e.self_device_time_total / 1e3 / busy:.1%}) {e.key[:90]}")
+
+
+def profile_serve(cfg, model, prompt, steps: int = 8):
+    """Wall time against device busy time for one prefill and ``steps``
+    greedy decode steps, and the kernels that take the device's time."""
+    B, P = prompt.shape
 
     def do_prefill():
         cache = init_cache(cfg, B, P + steps, dtype=torch.float32,
@@ -449,8 +506,8 @@ def profile_serve(cfg, model, prompt, steps: int = 8):
         for i in range(steps):
             decode_step(model, cfg, tokens=tok, cache=cache, index=P + i)
 
-    run("prefill", do_prefill)
-    run(f"decode x{steps}", do_decode)
+    profile_run(cfg.name, "prefill", do_prefill)
+    profile_run(cfg.name, f"decode x{steps}", do_decode)
 
 
 def phase_gpu_vs_cpu():
@@ -475,7 +532,199 @@ def phase_gpu_vs_cpu():
               f"{cpu.logits.shape[0]} steps, greedy streams equal")
 
 
-def main() -> int:
+def check_counters(r, churn: float):
+    """The trainer's invariants on one iteration's counters."""
+    ok = (r.completed + r.dropped == r.launched
+          and r.fwd_recomputes + r.bwd_replays == r.rerouted
+          and r.requeued <= r.rerouted and r.completed > 0)
+    if churn == 0:
+        ok = ok and r.completed == r.launched and r.rerouted == 0
+    if not ok:
+        raise SystemExit(f"counters break the trainer's invariants: {r}")
+    if not math.isfinite(r.loss):
+        raise SystemExit(f"non-finite loss {r.loss}")
+
+
+def phase_train():
+    """Train at full width as the main path; returns each kernel's
+    launches counted over exactly this run (0: neither is on the path)."""
+    args = train.parser().parse_args(TRAIN_ARGS)
+    t0 = time.perf_counter()
+    trainer, shards = train.build_gwtf(args)
+    torch.cuda.synchronize()
+    built_s = time.perf_counter() - t0
+    cfg = trainer.cfg
+    print(f"== 6. train {cfg.name} full width, {cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.num_heads} heads of {cfg.head_dim}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.param_dtype} params; "
+          f"{args.stages} stages x {args.relays_per_stage} relays, capacity "
+          f"{args.capacity}, {args.data_nodes} data nodes x {args.microbatches} "
+          f"microbatches of {args.batch} x {args.seq_len} tokens")
+    print(f"trainer built in {built_s:.1f}s (weights drawn on the host, moved "
+          f"to the card)")
+    torch.cuda.reset_peak_memory_stats()
+    ops.flash_attention.launches = 0      # the main path starts here
+    ops.ssd_scan.launches = 0
+    for body in fa.BODY_LAUNCHES:
+        fa.BODY_LAUNCHES[body] = 0
+    def step(it: int, churn: float):
+        trainer.churn_model = BernoulliChurn(churn)
+        r, secs, tokens = train.train_iteration(trainer, shards)
+        check_counters(r, churn)
+        print(f"iter {it} churn {churn}: loss {r.loss:.4f}, completed "
+              f"{r.completed}/{r.launched}, dropped {r.dropped}, rerouted "
+              f"{r.rerouted} (requeued {r.requeued}, fwd recomputes "
+              f"{r.fwd_recomputes}, bwd replays {r.bwd_replays}), "
+              f"{secs * 1e3:.1f} ms, {tokens / secs:.0f} tok/s, store peak "
+              f"{r.store_peak_bytes / 2**30:.2f} GiB")
+
+    # the churn-0 iterations are profile_run's three runs: the first warms
+    # up, the second is timed, the third runs under the profiler
+    print("where the time goes (torch.profiler), iterations 0-2 at churn 0:")
+    its = iter(range(TRAIN_ITERS))
+    profile_run(cfg.name, "train iteration", lambda: step(next(its), 0.0))
+    for it in range(TRAIN_ITERS, 2 * TRAIN_ITERS):
+        step(it, TRAIN_CHURN)
+    launches = {"flash_attention": ops.flash_attention.launches,
+                "ssd_scan": ops.ssd_scan.launches}
+    if any(launches.values()) or any(fa.BODY_LAUNCHES.values()):
+        raise SystemExit(f"the training path launched kernels {launches}: its "
+                         f"attention must be the differentiable plain path")
+    print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+          f"launches {launches} (neither kernel is on the training path)")
+    # the gradient screen (on only when the churn model corrupts gradients)
+    # copies every per-microbatch gradient to the host: one stage's worth
+    grads = trainer.stage_params[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flat = trainer._flatten_grads(grads)
+    print(f"gradient screen: host copy of one stage's gradient tree "
+          f"({flat.size / 1e6:.1f} M values, {flat.nbytes / 2**20:.0f} MiB as "
+          f"f64) in {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    return launches
+
+
+def _reduced_trainers(dtype: str, device: str, **kw):
+    cfg = dataclasses.replace(get_config("gwtf-llama-300m").reduced(),
+                              param_dtype=dtype)
+    net = geo_distributed_network(
+        num_stages=2, relay_capacities=[3] * 6, num_data_nodes=1,
+        data_capacity=4, rng=np.random.default_rng(0))
+    rt = RuntimeTrainer(cfg, net, lr=1e-3, seed=0, churn_model=TraceChurn([]),
+                        device=device, **kw)
+    mbs = DataNodeShard(DataConfig(vocab_size=cfg.vocab_size, seq_len=128,
+                                   batch_size=8, microbatch_size=2, seed=0),
+                        0, 1).microbatches()
+    return cfg, rt, net.data_nodes()[0].id, mbs
+
+
+def train_identities() -> int:
+    """Churn 0 against ``CentralizedTrainer`` and fused against remat, bit
+    for bit, reduced, under deterministic algorithms (run in a child with
+    ``CUBLAS_WORKSPACE_CONFIG`` set before CUDA starts)."""
+    torch.use_deterministic_algorithms(True)
+    for dtype in ("float32", "bfloat16"):
+        cfg, rt, dn, mbs = _reduced_trainers(dtype, "cuda")
+        _, remat, _, _ = _reduced_trainers(dtype, "cuda", remat=True)
+        cen = CentralizedTrainer(cfg, 2, lr=1e-3, seed=0, device="cuda")
+        for it in range(3):
+            a = rt.iteration({dn: mbs}).loss
+            b = cen.iteration(mbs)
+            c = remat.iteration({dn: mbs}).loss
+            if not a == b == c:
+                raise SystemExit(f"{dtype} iteration {it}: losses decentralized "
+                                 f"{a!r}, centralized {b!r}, remat {c!r}")
+        for name, other, theirs in (("centralized", cen, cen.head_params),
+                                    ("remat", remat, remat.head_params[dn])):
+            mine = leaves((rt.stage_params, rt.head_params[dn]))
+            if not all(torch.equal(x, y) for x, y in
+                       zip(mine, leaves((other.stage_params, theirs)))):
+                raise SystemExit(f"{dtype}: parameters differ from {name}")
+        print(f"{cfg.name} {dtype}: churn 0 = centralized = remat bit for bit "
+              f"over 3 iterations (losses {rt.losses}), every parameter equal; "
+              f"remat recomputes {remat.stages.remat_recompute_count}, fused "
+              f"{rt.stages.remat_recompute_count}")
+    return 0
+
+
+def phase_train_checks():
+    print("== 6b. training, reduced: bit-identities under deterministic "
+          "algorithms (child process)")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "--train-identities"], env=env, capture_output=True,
+                          text=True, timeout=600)
+    print(proc.stdout, end="")
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        raise SystemExit(f"bit-identity child exited {proc.returncode}")
+
+
+def phase_train_vs_cpu():
+    print("== 6c. training, reduced f32: three iterations on cuda against cpu")
+    runs = {device: _reduced_trainers("float32", device)[1:]
+            for device in ("cpu", "cuda")}
+    (tc, dn, mbs), (tg, _, _) = runs["cpu"], runs["cuda"]
+    lr = tg.opt.lr
+    for it in range(len(TRAIN_LOSS_RTOL)):
+        rc, rg = tc.iteration({dn: mbs}), tg.iteration({dn: mbs})
+        for f in ("completed", "launched", "dropped", "rerouted", "requeued",
+                  "fwd_recomputes", "bwd_replays", "wire_bytes"):
+            if getattr(rc, f) != getattr(rg, f):
+                raise SystemExit(f"iteration {it} {f}: cpu {getattr(rc, f)}, "
+                                 f"cuda {getattr(rg, f)}")
+        rel = abs(rg.loss - rc.loss) / abs(rc.loss)
+        if rel > TRAIN_LOSS_RTOL[it]:
+            raise SystemExit(f"iteration {it}: loss cpu {rc.loss!r}, cuda "
+                             f"{rg.loss!r}")
+        moments = moment_difference(tg, tc)
+        print(f"iteration {it}: counters equal, loss cpu {rc.loss:.6f} cuda "
+              f"{rg.loss:.6f} (rel {rel:.3g}, tol {TRAIN_LOSS_RTOL[it]}), "
+              f"moments' largest difference {moments:.3g} of a leaf's largest "
+              f"magnitude")
+        if it in (0, len(TRAIN_LOSS_RTOL) - 1) and moments > TRAIN_MOMENT_RTOL:
+            raise SystemExit(f"iteration {it}: AdamW moments differ by "
+                             f"{moments:.3g} of a leaf's largest magnitude, "
+                             f"tol {TRAIN_MOMENT_RTOL}")
+        if it:
+            continue
+        worst, flipped, total = 0.0, 0, 0
+        for g, c in zip(leaves((tg.stage_params, tg.head_params)),
+                        leaves((tc.stage_params, tc.head_params))):
+            d = (g.cpu() - c).abs()
+            flipped += int((d > TRAIN_PARAM_TOL).sum())
+            total += d.numel()
+            worst = max(worst, float(d.max()))
+        if flipped > TRAIN_FLIP_SHARE * total or worst > 2 * lr * (1 + 1e-3):
+            raise SystemExit(f"parameters: {flipped} of {total} beyond "
+                             f"{TRAIN_PARAM_TOL}, largest difference {worst:.3g}")
+        print(f"iteration 0 parameters: {flipped} of {total} beyond "
+              f"{TRAIN_PARAM_TOL} (allowed {TRAIN_FLIP_SHARE:.1%}), largest "
+              f"difference {worst:.3g} (allowed 2 lr = {2 * lr:.3g})")
+    print(f"moments held within {TRAIN_MOMENT_RTOL} after iterations 0 and "
+          f"{len(TRAIN_LOSS_RTOL) - 1}")
+
+
+def moment_difference(tg, tc) -> float:
+    """The largest difference between two trainers' AdamW moments (every
+    stage and head tree, m and v), each leaf's as a share of its largest
+    magnitude on the second trainer."""
+    worst = 0.0
+    for og, oc in zip(tg.stage_opt + [tg.head_opt[k] for k in sorted(tg.head_opt)],
+                      tc.stage_opt + [tc.head_opt[k] for k in sorted(tc.head_opt)]):
+        for g, c in zip(leaves((og.m, og.v)), leaves((oc.m, oc.v))):
+            diff, scale = float((g.cpu() - c).abs().max()), float(c.abs().max())
+            if diff:
+                worst = max(worst, diff / scale if scale else math.inf)
+    return worst
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--train-identities", action="store_true",
+                    help="run only phase 6b's bit-identity checks (the child "
+                         "process phase 6b starts)")
+    opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs a GPU",
               file=sys.stderr)
@@ -483,6 +732,8 @@ def main() -> int:
     # f32 results are compared below: keep f32 products in full f32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if opts.train_identities:
+        return train_identities()
 
     phase_device()
     flash_timings = phase_kernel()
@@ -497,6 +748,12 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     phase_gpu_vs_cpu()
+
+    # training launches neither kernel; its counts are checked in the phase
+    phase_train()
+    torch.cuda.empty_cache()
+    phase_train_checks()
+    phase_train_vs_cpu()
 
     kernels = [
         # the main path's body (bf16) is the source; f32 runs the other

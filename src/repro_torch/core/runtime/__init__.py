@@ -1,1 +1,3 @@
-"""Runtime of the PyTorch port: serving inputs."""
+"""Runtime of the PyTorch port: serving inputs, and the staged training
+runtime (``stages``, ``activations``, ``cache``, ``recovery``,
+``trainer``; port of ``repro.core.runtime``)."""

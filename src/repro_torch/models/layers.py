@@ -5,8 +5,10 @@ Port of ``repro.models.layers`` (dense parts).  Parameters are dicts of
 tensors (``nn.ParameterDict`` inside the model); the apply functions take
 them and plain tensors.  Causal self-attention goes through
 ``kernels.ops.flash_attention``: the hand-written kernel on CUDA, its
-plain version on the CPU.  Single-token decode against the KV cache has
-no kernel and stays plain PyTorch.
+plain version on the CPU; the training stages pass ``use_kernel=False``
+and take ``_online_attention``, which autograd differentiates.
+Single-token decode against the KV cache has no kernel and stays plain
+PyTorch.  ``chunked_xent_loss`` is the training loss head.
 
 Where JAX computes a product of low-precision operands with
 ``preferred_element_type=f32`` or promotes mixed dtypes, the port casts
@@ -220,7 +222,8 @@ def _decode_attention(q, ck, cv, kv_valid: int, KH: int, hd: int,
 
 
 def apply_attention(p, x, cfg: ModelConfig, *, positions, causal=True,
-                    window=None, cache=None, write_index=None, kv_valid=None):
+                    window=None, cache=None, write_index=None, kv_valid=None,
+                    use_kernel: bool = True):
     """Self-attention with optional KV cache.
 
     x: (B, S, D).  cache: dict(k=(B, C, kv_dim), v=(B, C, kv_dim)), kv
@@ -234,6 +237,11 @@ def apply_attention(p, x, cfg: ModelConfig, *, positions, causal=True,
     query attends to all live slots.  A multi-token step (prefill) writes
     the cache and attends causally over its own pre-write K/V through the
     flash kernel.
+
+    ``use_kernel`` routes causal attention without a cache: through the
+    flash kernel (serving), or, when False, through ``_online_attention``,
+    the path autograd can differentiate (the training stages, as in the
+    JAX package; the kernel has no backward).
 
     Returns (out, cache).
     """
@@ -260,10 +268,10 @@ def apply_attention(p, x, cfg: ModelConfig, *, positions, causal=True,
         else:
             # the cache was empty: attend over this step's own K/V
             out = kops.flash_attention(q, k, v, causal=True)
-    elif causal:
+    elif causal and use_kernel:
         out = kops.flash_attention(q, k, v, causal=True, window=window)
     else:
-        out = _online_attention(q, k, v, 0, causal=False, window=window)
+        out = _online_attention(q, k, v, 0, causal=causal, window=window)
 
     return out.reshape(B, S, cfg.q_dim) @ p["wo"], cache
 
@@ -288,3 +296,26 @@ def embed_tokens(p, tokens):
 def lm_logits(p, x, cfg: ModelConfig):
     w = p["table"].T if cfg.tie_embeddings else p["lm_head"]
     return x @ w
+
+
+def chunked_xent_loss(embed_p, x, labels, cfg: ModelConfig, chunk: int = 512):
+    """Mean cross-entropy over sequence chunks of ``chunk`` rows (one
+    chunk of all S when S is not a multiple), so logits exist only per
+    chunk.  x: (B, S, D), labels: (B, S) -> f32 scalar.
+
+    Autograd keeps each chunk's f32 logits for the backward, where the
+    JAX package recomputes them (``jax.checkpoint``); the values are the
+    same."""
+    B, S, D = x.shape
+    w = embed_p["table"].T if cfg.tie_embeddings else embed_p["lm_head"]
+    n = S // chunk if S % chunk == 0 else 1
+    if n == 1:
+        chunk = S
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        xc, lc = x[:, i * chunk:(i + 1) * chunk], labels[:, i * chunk:(i + 1) * chunk]
+        logits = (xc @ w).float()                            # (B, chunk, V)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, lc[..., None].long())[..., 0]
+        total = total + (logz - gold).sum()
+    return total / (B * S)

@@ -122,9 +122,12 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 # ---------------------------------------------------------------------------
 
 def _apply_block(bp: Block, x, cfg: ModelConfig, *, positions, window, cache,
-                 write_index, kv_valid):
+                 write_index, kv_valid, use_kernel: bool = True):
     """One decoder layer.  ``cache`` is this layer's slice
-    (``{"attn": ..., "ssm": ...}`` as the model has them), written in place."""
+    (``{"attn": ..., "ssm": ...}`` as the model has them), written in place.
+    ``bp`` is anything with the layer's parameter dicts as attributes (a
+    ``Block``, or one layer's view of a stacked stage tree); ``use_kernel``
+    goes to ``apply_attention``."""
     h = L.apply_norm(bp.ln1, x, cfg)
     if cfg.arch_type == "ssm":
         out, _ = SSM.apply_mamba(bp.mamba, h, cfg,
@@ -134,7 +137,8 @@ def _apply_block(bp: Block, x, cfg: ModelConfig, *, positions, window, cache,
     a_out, _ = L.apply_attention(bp.attn, h, cfg, positions=positions,
                                  window=window,
                                  cache=cache["attn"] if cache else None,
-                                 write_index=write_index, kv_valid=kv_valid)
+                                 write_index=write_index, kv_valid=kv_valid,
+                                 use_kernel=use_kernel)
     if cfg.arch_type == "hybrid":
         s_out, _ = SSM.apply_mamba(bp.mamba, h, cfg,
                                    cache=cache["ssm"] if cache else None)

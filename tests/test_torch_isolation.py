@@ -3,7 +3,9 @@
 In a fresh interpreter whose ``sys.meta_path`` refuses ``jax``, ``jaxlib``
 and ``repro`` (matched on the whole first name, so ``repro_torch`` passes),
 every module of ``repro_torch`` and ``chip_smoke.py`` import, and importing
-``chip_smoke.py`` builds, loads and launches no kernel.
+``chip_smoke.py`` builds, loads and launches no kernel.  The training
+path's modules, the copies of the numpy flow/sim/data modules among them,
+are on the list.
 """
 import os
 import subprocess
@@ -30,6 +32,14 @@ import repro_torch
 
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                 "repro_torch.")]
+TRAINING = ["checkpoint.store", "core.executor", "core.flow.decentralized",
+            "core.flow.graph", "core.flow.mincost", "core.runtime.activations",
+            "core.runtime.cache", "core.runtime.recovery",
+            "core.runtime.stages", "core.runtime.trainer", "core.sim.faults",
+            "core.sim.policies", "core.sim.timeline", "core.swarm",
+            "data.pipeline", "launch.train", "optim.adamw", "tree"]
+missing = [m for m in TRAINING if "repro_torch." + m not in names]
+assert not missing, missing
 for name in names:
     importlib.import_module(name)
 
@@ -57,4 +67,4 @@ def test_port_imports_nothing_of_jax():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split()[-1])
-    assert n >= 15, proc.stdout
+    assert n >= 47, proc.stdout
