@@ -10,8 +10,9 @@ stops with a non-zero exit at the first phase that fails:
 1. device: the card's name and power limit, torch and CUDA versions, each
    kernel's build time and ptxas register and spill lines;
 2. the flash-attention kernel against its plain PyTorch version on the
-   card, at the three serving shapes and at f32, ragged, GQA, windowed and
-   non-causal shapes, each with the body it ran (bf16 on the tensor cores,
+   card, at the three serving shapes, the cohorts of 1, 3 and 4 rows that
+   phase 7 prefills, and at f32, ragged, GQA, windowed, non-causal and
+   S = 8 shapes, each with the body it ran (bf16 on the tensor cores,
    ``flash_attention_sm90.cu``; f32 on the CUDA cores,
    ``flash_attention.cu``), the median time of a single call (CUDA
    events, the host's enqueue inside), the plain version's, the time of
@@ -67,7 +68,26 @@ stops with a non-zero exit at the first phase that fails:
    moments (which see the gradients' magnitudes) within
    ``TRAIN_MOMENT_RTOL`` after the first and the third, the parameters
    after the first as stated at ``TRAIN_PARAM_TOL``;
-7. a JSON line of the kernels, then the card, then the result line.
+7. serving under churn, the port's third main path: ``gwtf-llama-300m``
+   at full width (bf16 params, f32 cache) through the flow-routed
+   ``ServeTrainer`` on a full-width variant of the corpus scenario
+   ``serve-churn-under-load`` (``SERVE_CHURN`` with ``SERVE_CHURN_FULL``:
+   prompt 512, a 512-token profile microbatch, the crash moved), defended,
+   calm (the churn stripped) and undefended (``reroute=False``), each
+   with its kernels' launches counted over the run and held to one flash
+   launch per layer of each prefill call, all on the bf16 body; per run
+   the wall ms of each iteration, of each prefill, decode dispatch and
+   cache replay, the counters, decoded tokens per second of wall time,
+   the peak memory and the engine's summary in simulated seconds; the
+   defended run must requeue mid-decode and replay caches, and every
+   completed request holds ``gen_tokens`` tokens of the vocabulary; then
+   the crash iteration of a repeat of the defended run under
+   ``torch.profiler``; 7b. the scenario itself, reduced, f32, on cuda
+   against the cpu, as ``gwtf-llama-300m`` and as ``hymba-1.5b`` (both
+   kernels at S = 8): ledgers, summaries, timelines, counters and token
+   streams exactly equal, the defended streams equal to the calm ones,
+   and each kernel launched once per layer of each prefill call;
+8. a JSON line of the kernels, then the card, then the result line.
 
 It needs no network and exits non-zero, printing no result, without a
 GPU or outside a checkout of the repository.
@@ -97,10 +117,15 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.flow.graph import geo_distributed_network  # noqa: E402
-from repro_torch.core.runtime.serving import serving_inputs  # noqa: E402
+from repro_torch.core.runtime.serving import (ServeTrainer,  # noqa: E402
+                                              serving_inputs)
+from repro_torch.core.scenarios import generate as scenarios  # noqa: E402
+from repro_torch.core.scenarios.spec import ScenarioSpec  # noqa: E402
 from repro_torch.core.runtime.trainer import (CentralizedTrainer,  # noqa: E402
                                               RuntimeTrainer)
 from repro_torch.core.sim.faults import BernoulliChurn, TraceChurn  # noqa: E402
+from repro_torch.core.sim.metrics import summarize_serving  # noqa: E402
+from repro_torch.core.sim.policies import make_policy  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, DataNodeShard  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -134,6 +159,13 @@ KERNEL_CASES = [
     ("non-causal ragged S=130", (2, 130, 8, 8, 64), torch.float32, False, None, 2e-4),
     ("bf16 non-causal ragged S=130", (2, 130, 8, 8, 64), torch.bfloat16, False,
      None, 2e-2),
+    # phase 7's ServeTrainer prefills cohorts of 1, 3 and 4 rows of 512
+    ("serve cohort of 1", (1, 512, 16, 16, 64), torch.bfloat16, True, None, 2e-2),
+    ("serve cohort of 3", (3, 512, 16, 16, 64), torch.bfloat16, True, None, 2e-2),
+    ("serve cohort of 4", (4, 512, 16, 16, 64), torch.bfloat16, True, None, 2e-2),
+    # the reduced serves of phase 7b prefill 8 tokens
+    ("S=8", (1, 8, 16, 16, 64), torch.float32, True, None, 2e-4),
+    ("bf16 S=8", (1, 8, 16, 16, 64), torch.bfloat16, True, None, 2e-2),
 ]
 # name, (B, S, H, P, N), dtype, initial state ("zero" as the serving
 # cache passes it, "none", or "random"), packed (x, B and C strided views
@@ -159,6 +191,8 @@ SSD_CASES = [
     ("bf16", (2, 256, 3, 32, 64), torch.bfloat16, "none", False, 2e-1),
     ("ragged S=100", (2, 100, 4, 64, 128), torch.float32, "none", False, 2e-3),
     ("h0 != 0", (2, 192, 4, 48, 40), torch.float32, "random", False, 2e-3),
+    # the reduced hybrid serve of phase 7b prefills 8 tokens
+    ("S=8", (1, 8, 4, 32, 16), torch.float32, "zero", False, 2e-3),
 ]
 SSD_SEQUENTIAL_CASE = ("sequential oracle", (1, 96, 2, 16, 8), torch.float32,
                        "random", False, 2e-3)
@@ -188,6 +222,34 @@ TRAIN_ITERS, TRAIN_CHURN = 3, 0.1
 # TRAIN_FLIP_SHARE of them may do, each by at most 2 lr
 TRAIN_LOSS_RTOL = (1e-4, 1e-3, 1e-3)
 TRAIN_MOMENT_RTOL, TRAIN_PARAM_TOL, TRAIN_FLIP_SHARE = 1e-3, 1e-5, 1e-3
+# phase 7b: the corpus scenario serve-churn-under-load
+# (src/repro/core/scenarios/corpus.py:191-202), field for field
+SERVE_CHURN = dict(
+    name="serve-churn-under-load", seed=28, topology="geo", num_stages=3,
+    relays_per_stage=3, num_data_nodes=1, data_capacity=4,
+    capacity_range=(2, 4), iterations=4, microbatches=4, model_layers=2,
+    model_d=32, model_vocab=128, seq_len=16, microbatch_size=1, prompt_len=8,
+    gen_tokens=48, serve_batch=4,
+    arrivals=[{"kind": "spike", "at_iteration": 1, "requests": 4, "when": 0.2},
+              {"kind": "poisson", "rate": 1.0}],
+    churn=[{"kind": "trace", "events": [[1, "crash", 5, 0.4]]}])
+# phase 7: a full-width variant of it, not the corpus's traffic: prompt
+# 512, as phase 4 prefills, and the profile of the model served.  The
+# engine prices a prefill at prompt_len / (microbatch_size x seq_len)
+# microbatch forwards a stage: at the corpus's 16 tokens a microbatch a
+# 512-token prefill outlasts the 4 iterations and nothing decodes, so a
+# microbatch holds 512 tokens here.  At this profile no chain crosses relay
+# 5, so the crash moves to relay 2 at 0.5 of iteration 1, where the spike's
+# 4 requests are 23 tokens into their decode.
+SERVE_CHURN_FULL = dict(
+    name="serve-churn-under-load, full-width variant",
+    prompt_len=512, seq_len=512, model_layers=16, model_d=1024,
+    model_vocab=32000,
+    churn=[{"kind": "trace", "events": [[1, "crash", 2, 0.5]]}])
+# phase 7b: the reduced scenario as each model, f32
+SERVE_CHURN_MODELS = [{}, {"model": "hymba-1.5b", "model_d": 64}]
+SERVE_COUNTERS = ("prefill_calls", "decode_dispatches", "stacked_rows",
+                  "replay_steps")
 
 
 def attended_pairs(S: int, causal: bool, window) -> int:
@@ -406,6 +468,18 @@ def phase_ssd_kernel():
     return results
 
 
+def reset_launches():
+    ops.flash_attention.launches = 0
+    ops.ssd_scan.launches = 0
+    for body in fa.BODY_LAUNCHES:
+        fa.BODY_LAUNCHES[body] = 0
+
+
+def read_launches():
+    return {"flash_attention": ops.flash_attention.launches,
+            "ssd_scan": ops.ssd_scan.launches}
+
+
 def run_serve(arch: str):
     """Serve ``arch`` at full width as the main path; returns each kernel's
     launches counted over exactly this serve."""
@@ -423,14 +497,10 @@ def run_serve(arch: str):
              generator=g)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ops.flash_attention.launches = 0      # the main path starts here
-    ops.ssd_scan.launches = 0
-    for body in fa.BODY_LAUNCHES:
-        fa.BODY_LAUNCHES[body] = 0
+    reset_launches()                      # the main path starts here
     out = generate(model, cfg, prompt, gen=SERVE["gen"], window=None,
                    temperature=0.0, generator=g)
-    launches = {"flash_attention": ops.flash_attention.launches,
-                "ssd_scan": ops.ssd_scan.launches}
+    launches = read_launches()
     bodies = dict(fa.BODY_LAUNCHES)
     B = SERVE["batch"]
     want = {"flash_attention": cfg.num_layers if cfg.has_attention else 0,
@@ -468,8 +538,17 @@ def profile_run(name: str, label: str, fn):
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    profiled(name, label, fn, (time.perf_counter() - t0) * 1e3)
+
+
+def profiled(name: str, label: str, fn, wall=None,
+             activities=(ProfilerActivity.CPU, ProfilerActivity.CUDA)):
+    """Run ``fn`` once under ``torch.profiler``; print its profiled wall
+    time (and ``wall``, the unprofiled time of the same work, if known)
+    against the device busy time, and the kernels that take the device's
+    time.  Leaving out the CPU's activity leaves out the host's operator
+    events, which cost the profiler minutes over ~10^5 launches."""
+    with profile(activities=list(activities)) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -478,7 +557,8 @@ def profile_run(name: str, label: str, fn):
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
-    print(f"{name} {label}: wall {wall:.2f} ms, profiled {wall_prof:.2f} ms, "
+    unprofiled = "not taken" if wall is None else f"{wall:.2f} ms"
+    print(f"{name} {label}: wall {unprofiled}, profiled {wall_prof:.2f} ms, "
           f"device busy {busy:.2f} ms in {launches} kernels "
           f"(idle share {1 - busy / wall_prof:.1%} of the profiled wall)")
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
@@ -563,10 +643,8 @@ def phase_train():
     print(f"trainer built in {built_s:.1f}s (weights drawn on the host, moved "
           f"to the card)")
     torch.cuda.reset_peak_memory_stats()
-    ops.flash_attention.launches = 0      # the main path starts here
-    ops.ssd_scan.launches = 0
-    for body in fa.BODY_LAUNCHES:
-        fa.BODY_LAUNCHES[body] = 0
+    reset_launches()                      # the main path starts here
+
     def step(it: int, churn: float):
         trainer.churn_model = BernoulliChurn(churn)
         r, secs, tokens = train.train_iteration(trainer, shards)
@@ -585,8 +663,7 @@ def phase_train():
     profile_run(cfg.name, "train iteration", lambda: step(next(its), 0.0))
     for it in range(TRAIN_ITERS, 2 * TRAIN_ITERS):
         step(it, TRAIN_CHURN)
-    launches = {"flash_attention": ops.flash_attention.launches,
-                "ssd_scan": ops.ssd_scan.launches}
+    launches = read_launches()
     if any(launches.values()) or any(fa.BODY_LAUNCHES.values()):
         raise SystemExit(f"the training path launched kernels {launches}: its "
                          f"attention must be the differentiable plain path")
@@ -719,6 +796,238 @@ def moment_difference(tg, tc) -> float:
     return worst
 
 
+def serving_trainer(spec: ScenarioSpec, cfg, **kw) -> ServeTrainer:
+    """``scenarios.build_serving_runtime``'s construction, in its order (the
+    network, the policy's RNG stream, the arrival program, the churn and
+    the profile from the port's scenario helpers), with ``cfg`` in place of
+    the reduced ``model_config(spec)``."""
+    net, _ = scenarios.build_network(spec)
+    net.kv_weight = spec.kv_weight
+    rng = scenarios._rng(spec, scenarios._SALT_POLICY)
+    policy = make_policy(spec.scheduler, net, rng=rng)
+    return ServeTrainer(
+        cfg, net, policy=policy,
+        arrival_program=scenarios.compile_arrivals(spec),
+        churn_model=scenarios.build_churn_model(spec, net),
+        profile=scenarios.model_profile(spec),
+        prompt_len=spec.prompt_len, gen_tokens=spec.gen_tokens,
+        serve_batch=spec.serve_batch,
+        tokens_per_mb=spec.microbatch_size * spec.seq_len,
+        rng=rng, seed=spec.seed, **kw)
+
+
+def check_serve_launches(label: str, tr: ServeTrainer, launches, body=None):
+    """One flash launch per attention layer and one SSD launch per SSM
+    layer of each prefill call (admissions and replays); decode launches
+    neither.  ``body``: the flash body every launch must have run on."""
+    cfg = tr.cfg
+    want = {"flash_attention": cfg.num_layers * tr.prefill_calls
+            if cfg.has_attention else 0,
+            "ssd_scan": cfg.num_layers * tr.prefill_calls if cfg.has_ssm else 0}
+    if launches != want:
+        raise SystemExit(f"{label}: kernel launches {launches}, want {want} "
+                         f"({tr.prefill_calls} prefill calls)")
+    if body is not None and fa.BODY_LAUNCHES[body] != want["flash_attention"]:
+        raise SystemExit(f"{label}: flash bodies {fa.BODY_LAUNCHES}, want "
+                         f"every launch on {body}")
+
+
+def time_dispatches(tr: ServeTrainer):
+    """Wrap the trainer's three dispatch methods, on the instance, to record
+    each call's wall ms (the device synchronized on both sides) with its
+    rows (prefill, decode) or teacher-forced steps (replay)."""
+    times = {"prefill": [], "decode": [], "replay": []}
+    for method, key in (("_prefill_cohort", "prefill"),
+                        ("_decode_cohort", "decode"),
+                        ("_replay_cache", "replay")):
+        fn = getattr(tr, method)
+
+        def timed(arg, *rest, _fn=fn, _key=key):
+            size = len(arg.stream) - 1 if _key == "replay" else len(arg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _fn(arg, *rest)
+            torch.cuda.synchronize()
+            times[_key].append(((time.perf_counter() - t0) * 1e3, size))
+        setattr(tr, method, timed)
+    return times
+
+
+def spread(values) -> str:
+    if not values:
+        return "none"
+    v = sorted(values)
+    return (f"median {v[len(v) // 2]:.2f}, min {v[0]:.2f}, max {v[-1]:.2f} "
+            f"over {len(v)}")
+
+
+def phase_serve_churn():
+    """Serve under churn at full width as the main path; returns each
+    kernel's launches summed over the three runs, each counted from 0."""
+    cfg = get_config("gwtf-llama-300m")
+    spec = ScenarioSpec(**{**SERVE_CHURN, **SERVE_CHURN_FULL})
+    spec.validate()
+    print(f"== 7. serve under churn: {cfg.name} full width ({cfg.num_layers} "
+          f"layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}, bf16 params, "
+          f"f32 cache) through ServeTrainer on {spec.name}: {spec.num_stages} "
+          f"stages x {spec.relays_per_stage} relays, {spec.iterations} "
+          f"iterations, arrivals {spec.arrivals}, serve_batch "
+          f"{spec.serve_batch}, prompt {spec.prompt_len}, {spec.gen_tokens} "
+          f"tokens, {spec.microbatch_size * spec.seq_len} tokens a profile "
+          f"microbatch, churn {spec.churn}")
+    runs, shared = {}, None
+    launches = {"flash_attention": 0, "ssd_scan": 0}
+    for label, s, kw in (("defended", spec, {}),
+                         ("calm", dataclasses.replace(spec, churn=[]), {}),
+                         ("undefended", spec, {"reroute": False})):
+        tr = serving_trainer(s, cfg, device="cuda", **kw)
+        if shared is None:
+            shared = (tr.params, tr._prompts)
+        tr.params, tr._prompts = shared      # one model and prompt set
+        times = time_dispatches(tr)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        reset_launches()                     # the main path starts here
+        walls, ms = [], []
+        for _ in range(s.iterations):
+            t0 = time.perf_counter()
+            ms.append(tr.iteration())
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        got = read_launches()
+        check_serve_launches(label, tr, got, body=fa.SM90_LIBRARY.name)
+        for k in launches:
+            launches[k] += got[k]
+        done = [rid for rid, rec in tr.engine.requests.items()
+                if rec.completion is not None]
+        for rid in done:
+            stream = tr.token_stream(rid)
+            if len(stream) != s.gen_tokens or not all(
+                    0 <= t < cfg.vocab_size for t in stream):
+                raise SystemExit(f"{label}: request {rid} completed with "
+                                 f"{len(stream)} tokens {stream[:8]}...")
+        if not done:
+            raise SystemExit(f"{label}: no request completed")
+        # (kind, request, tokens decoded when it struck) for a requeue
+        incidents = [(op[0], op[2], op[-1]) for tl in tr.engine.traces
+                     for op in tl if op[0] in ("requeue", "requeue_wait",
+                                               "restart")]
+        if label == "defended" and not (
+                any(kind == "requeue" and k > 0 for kind, _, k in incidents)
+                and tr.replay_steps > 0):
+            raise SystemExit(f"defended: no requeue mid-decode replayed "
+                             f"(incidents {incidents}, replay steps "
+                             f"{tr.replay_steps})")
+        counters = {c: getattr(tr, c) for c in SERVE_COUNTERS}
+        wall_s = sum(walls) / 1e3
+        print(f"{label}: iterations {', '.join(f'{w:.1f}' for w in walls)} ms; "
+              f"counters {counters}; {tr.stacked_rows} decoded rows in "
+              f"{wall_s:.3f} s of wall, {tr.stacked_rows / wall_s:.1f} tok/s; "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+              f"({held / 2**30:.2f} GiB held when the run started); "
+              f"launches {got}, flash bodies {dict(fa.BODY_LAUNCHES)}; "
+              f"{len(done)} of {len(tr.engine.requests)} requests completed, "
+              f"{s.gen_tokens} tokens each; incidents {incidents}")
+        for key, unit in (("prefill", "rows"), ("decode", "rows"),
+                          ("replay", "teacher-forced steps")):
+            by_size = {}
+            for t, n in times[key]:
+                by_size.setdefault(n, []).append(t)
+            print(f"  {key} calls, wall ms by {unit}: " + "; ".join(
+                f"{n}: {spread(v)}" for n, v in sorted(by_size.items())))
+        print(f"  summary (simulated seconds): {summarize_serving(ms)}")
+        runs[label] = tr
+    calm = runs["calm"]
+    for label in ("defended", "undefended"):
+        same = total = 0
+        for rid in calm.engine.requests:
+            a, b = runs[label].token_stream(rid), calm.token_stream(rid)
+            same += sum(x == y for x, y in zip(a, b))
+            total += min(len(a), len(b))
+        print(f"{label} streams against calm: {same} of {total} tokens equal "
+              f"(bf16 params; reported, not required)")
+    # the crash iteration again, under the profiler, in a repeat of the
+    # defended run
+    tr = serving_trainer(spec, cfg, device="cuda")
+    tr.params, tr._prompts = shared
+    crash_it = spec.churn[0]["events"][0][0]
+    for _ in range(crash_it):
+        tr.iteration()
+    torch.cuda.synchronize()
+    print("where the time goes (torch.profiler), the crash iteration:")
+    profiled(cfg.name, f"serve iteration {crash_it} (crash)", tr.iteration,
+             activities=[ProfilerActivity.CUDA])
+    return launches
+
+
+def phase_serve_churn_vs_cpu():
+    """The reduced scenario on cuda against the cpu; returns each kernel's
+    launches summed over the cuda runs, each counted from 0."""
+    print("== 7b. serve under churn, reduced f32: cuda against cpu")
+    launches = {"flash_attention": 0, "ssd_scan": 0}
+    for over in SERVE_CHURN_MODELS:
+        spec = ScenarioSpec(**{**SERVE_CHURN, **over})
+        spec.validate()
+        runs = {}
+        for device in ("cpu", "cuda"):
+            for label, s in (("defended", spec),
+                             ("calm", dataclasses.replace(spec, churn=[]))):
+                tr = scenarios.build_serving_runtime(s, device=device)
+                # drawn on the CPU both times: one model on both devices
+                model, prompts, _ = serving_inputs(
+                    tr.cfg, seed=s.seed, batch=tr.max_requests,
+                    prompt_len=s.prompt_len, device="cpu")
+                tr.params, tr._prompts = model.to(device), prompts.to(device)
+                reset_launches()
+                ms = tr.run(s.iterations)
+                if device == "cuda":
+                    got = read_launches()
+                    check_serve_launches(f"{spec.model} {label}", tr, got)
+                    for k in launches:
+                        launches[k] += got[k]
+                runs[device, label] = (tr, ms)
+        for label in ("defended", "calm"):
+            (tc, mc), (tg, mg) = runs["cpu", label], runs["cuda", label]
+            checks = {
+                "ledgers": [dataclasses.asdict(m) for m in mc]
+                == [dataclasses.asdict(m) for m in mg],
+                "summaries": ([summarize_serving([m]) for m in mc]
+                              == [summarize_serving([m]) for m in mg]),
+                "chain plans": tc.engine.chain_plans == tg.engine.chain_plans,
+                "timelines": ([vars(r) for r in tc.timeline.records]
+                              == [vars(r) for r in tg.timeline.records]),
+                "counters": all(getattr(tc, c) == getattr(tg, c)
+                                for c in SERVE_COUNTERS),
+                "streams": all(tc.token_stream(r) == tg.token_stream(r)
+                               for r in tc.engine.requests)}
+            failed = [k for k, ok in checks.items() if not ok]
+            if failed:
+                raise SystemExit(f"{spec.model} {label}: cuda and cpu differ "
+                                 f"in {failed}")
+        for device in ("cpu", "cuda"):
+            (td, _), (tcalm, _) = runs[device, "defended"], runs[device, "calm"]
+            for rid in tcalm.engine.requests:
+                a, b = td.token_stream(rid), tcalm.token_stream(rid)
+                if a[:len(b)] != b[:len(a)]:
+                    raise SystemExit(f"{spec.model} on {device}: request {rid} "
+                                     f"defended stream left the calm one")
+        td = runs["cuda", "defended"][0]
+        ks = [op[5] for tl in td.engine.traces for op in tl if op[0] == "requeue"]
+        if not (ks and all(k > 0 for k in ks) and td.replay_steps > 0):
+            raise SystemExit(f"{spec.model}: requeue prefixes {ks}, replay "
+                             f"steps {td.replay_steps}")
+        print(f"{spec.model} ({td.cfg.num_layers} layers, d_model "
+              f"{td.cfg.d_model}, f32): defended and calm, cuda = cpu in "
+              f"ledgers, summaries, chain plans, timelines, counters "
+              f"{ {c: getattr(td, c) for c in SERVE_COUNTERS} } and "
+              f"{len(td.engine.requests)} streams; defended streams = calm "
+              f"on both; requeued at tokens {ks}")
+    print(f"launches over the cuda runs {launches}, one per layer of each "
+          f"prefill call")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--train-identities", action="store_true",
@@ -735,9 +1044,16 @@ def main(argv=None) -> int:
     if opts.train_identities:
         return train_identities()
 
+    start = time.perf_counter()
+
+    def took(phases: str):
+        print(f"[phases {phases} done, {time.perf_counter() - start:.1f} s "
+              f"into the script]")
+
     phase_device()
     flash_timings = phase_kernel()
     ssd_timings = phase_ssd_kernel()
+    took("1-3")
 
     # each serve is one main path, counted from 0 with its model alone
     # on the card; the kernels line reports their sums
@@ -748,12 +1064,21 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
     phase_gpu_vs_cpu()
+    took("4-5")
 
     # training launches neither kernel; its counts are checked in the phase
     phase_train()
     torch.cuda.empty_cache()
     phase_train_checks()
     phase_train_vs_cpu()
+    took("6-6c")
+
+    # serving under churn: each run a main path counted from 0
+    torch.cuda.empty_cache()
+    for phase in (phase_serve_churn, phase_serve_churn_vs_cpu):
+        for name, n in phase().items():
+            launches[name] += n
+    took("7-7b")
 
     kernels = [
         # the main path's body (bf16) is the source; f32 runs the other

@@ -1,2 +1,2 @@
 """Flow planner of the PyTorch port: copies of ``repro.core.flow``'s
-``graph``, ``decentralized`` and ``mincost``."""
+``graph``, ``decentralized``, ``mincost`` and ``reference``."""

@@ -16,44 +16,46 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
+def _walk(t, leaves: List[Any]):
+    if t is None:
+        return None
+    if isinstance(t, dict):
+        keys = sorted(t)
+        return (dict, keys, [_walk(t[k], leaves) for k in keys])
+    if _is_namedtuple(t) or isinstance(t, (list, tuple)):
+        return (type(t), None, [_walk(c, leaves) for c in t])
+    leaves.append(t)
+    return "leaf"
+
+
 def flatten(tree) -> Tuple[List[Any], Any]:
-    """``(leaves, spec)``; ``unflatten(spec, leaves)`` rebuilds the tree."""
+    """``(leaves, spec)``; ``unflatten(spec, leaves)`` rebuilds the tree.
+
+    The recursion is a module-level function, not a closure: a recursive
+    closure is a reference cycle, which would keep the leaves alive until
+    the garbage collector runs."""
     leaves: List[Any] = []
-
-    def walk(t):
-        if t is None:
-            return None
-        if isinstance(t, dict):
-            keys = sorted(t)
-            return (dict, keys, [walk(t[k]) for k in keys])
-        if _is_namedtuple(t):
-            return (type(t), None, [walk(c) for c in t])
-        if isinstance(t, (list, tuple)):
-            return (type(t), None, [walk(c) for c in t])
-        leaves.append(t)
-        return "leaf"
-
-    spec = walk(tree)
+    spec = _walk(tree, leaves)
     return leaves, spec
+
+
+def _build(s, it):
+    if s is None:
+        return None
+    if s == "leaf":
+        return next(it)
+    kind, keys, children = s
+    built = [_build(c, it) for c in children]
+    if kind is dict:
+        return dict(zip(keys, built))
+    if kind in (list, tuple):
+        return kind(built)
+    return kind(*built)                          # NamedTuple
 
 
 def unflatten(spec, leaves) -> Any:
     it = iter(leaves)
-
-    def build(s):
-        if s is None:
-            return None
-        if s == "leaf":
-            return next(it)
-        kind, keys, children = s
-        built = [build(c) for c in children]
-        if kind is dict:
-            return dict(zip(keys, built))
-        if kind in (list, tuple):
-            return kind(built)
-        return kind(*built)                      # NamedTuple
-
-    out = build(spec)
+    out = _build(spec, it)
     rest = list(it)
     if rest:
         raise ValueError(f"{len(rest)} leaves left over after unflatten")

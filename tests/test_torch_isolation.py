@@ -4,8 +4,8 @@ In a fresh interpreter whose ``sys.meta_path`` refuses ``jax``, ``jaxlib``
 and ``repro`` (matched on the whole first name, so ``repro_torch`` passes),
 every module of ``repro_torch`` and ``chip_smoke.py`` import, and importing
 ``chip_smoke.py`` builds, loads and launches no kernel.  The training
-path's modules, the copies of the numpy flow/sim/data modules among them,
-are on the list.
+path's and the flow-routed serving path's modules, the copies of the
+numpy flow/sim/scenario/data modules among them, are on the list.
 """
 import os
 import subprocess
@@ -37,7 +37,11 @@ TRAINING = ["checkpoint.store", "core.executor", "core.flow.decentralized",
             "core.runtime.cache", "core.runtime.recovery",
             "core.runtime.stages", "core.runtime.trainer", "core.sim.faults",
             "core.sim.policies", "core.sim.timeline", "core.swarm",
-            "data.pipeline", "launch.train", "optim.adamw", "tree"]
+            "data.pipeline", "launch.train", "optim.adamw", "tree",
+            # the flow-routed serving slice
+            "core.sim.engine", "core.sim.metrics", "core.sim.facade",
+            "core.flow.reference", "core.scenarios.generate",
+            "core.runtime.serving"]
 missing = [m for m in TRAINING if "repro_torch." + m not in names]
 assert not missing, missing
 for name in names:

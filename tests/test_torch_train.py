@@ -5,7 +5,8 @@ Both ``RuntimeTrainer``s start from the JAX package's seeded parameters
 (carried into the port by ``weights.initial_params_from_jax``), plan on
 networks built from the same seed through their own copies of the flow
 and sim layers, and train on the same numpy batches.  Over three
-iterations at churn 0 and 0.2 (and with a bf16 wire), every counter
+iterations at churn 0 and 0.2 (and with a bf16, int8 or top-k wire, and
+for ``gwtf-gpt-300m``'s LayerNorm, GELU and tied embeddings), every counter
 (completed, launched, dropped, rerouted, requeued, fwd_recomputes,
 bwd_replays, wire_bytes), the dispatch snapshot and the ``FaultTimeline``
 are exactly equal, and the losses agree within 2e-4 relative on the first
@@ -67,9 +68,9 @@ def one_torch_thread():
     torch.set_num_threads(before)
 
 
-def _cfgs(param_dtype="float32"):
+def _cfgs(param_dtype="float32", arch="gwtf-llama-300m"):
     return tuple(dataclasses.replace(
-        get("gwtf-llama-300m").reduced(num_layers=4, d_model=128),
+        get(arch).reduced(num_layers=4, d_model=128),
         vocab_size=256, param_dtype=param_dtype)
         for get in (jax_config, get_config))
 
@@ -121,11 +122,21 @@ def _same(a, b) -> bool:
     return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
 
 
-@pytest.mark.parametrize("churn,wire,dtype", [
-    (0.0, None, "float32"), (0.2, None, "float32"), (0.2, "bf16", "float32"),
-    (0.2, None, "bfloat16")])
-def test_trainer_matches_jax(churn, wire, dtype):
-    jcfg, tcfg = _cfgs(dtype)
+# the int8 wire's head parameters need the bf16 wire's bounds (int8 at
+# 4.2e-3, ROADMAP Queue 3), the top-k wire and gwtf-gpt-300m f32's
+@pytest.mark.parametrize("churn,wire,dtype,arch", [
+    (0.0, None, "float32", "gwtf-llama-300m"),
+    (0.2, None, "float32", "gwtf-llama-300m"),
+    (0.2, "bf16", "float32", "gwtf-llama-300m"),
+    (0.2, None, "bfloat16", "gwtf-llama-300m"),
+    (0.2, None, "float32", "gwtf-gpt-300m"),
+    (0.2, "int8", "float32", "gwtf-llama-300m"),
+    (0.2, "topk", "float32", "gwtf-llama-300m")],
+    ids=["0.0-None-float32", "0.2-None-float32", "0.2-bf16-float32",
+         "0.2-None-bfloat16", "0.2-None-float32-gwtf-gpt-300m",
+         "0.2-int8-float32", "0.2-topk-float32"])
+def test_trainer_matches_jax(churn, wire, dtype, arch):
+    jcfg, tcfg = _cfgs(dtype, arch)
     jt = JRuntimeTrainer(jcfg, _net(j_network, 3, 2), churn=churn, lr=3e-3,
                          seed=0, wire_codec=wire)
     tt = _from_jax(RuntimeTrainer(tcfg, _net(geo_distributed_network, 3, 2),
@@ -144,7 +155,8 @@ def test_trainer_matches_jax(churn, wire, dtype):
         assert tt.last_chains == jt.last_chains
         repaired += rt.rerouted
     assert tt.stages.snapshot() == jt.stages.snapshot()
-    p_tol, m_tol = TREE_TOL["bf16 wire" if wire else dtype]
+    p_tol, m_tol = TREE_TOL["bf16 wire" if wire in ("bf16", "int8")
+                            else dtype]
     _assert_trees_close(jt.stage_params, tt.stage_params, atol=p_tol,
                         what="stage params")
     _assert_trees_close(jt.head_params, tt.head_params, atol=p_tol,
