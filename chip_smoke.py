@@ -11,9 +11,9 @@ stops with a non-zero exit at the first phase that fails:
    kernel's build time and ptxas register and spill lines;
 2. the flash-attention kernel against its plain PyTorch version on the
    card, at the three serving shapes, the cohorts of 1, 3 and 4 rows that
-   phase 7 prefills, and at f32, ragged, GQA, windowed, non-causal and
-   S = 8 shapes, each with the body it ran (bf16 on the tensor cores,
-   ``flash_attention_sm90.cu``; f32 on the CUDA cores,
+   phase 7 prefills in bf16 and phase 8b in f32, and at f32, ragged, GQA,
+   windowed, non-causal and S = 8 shapes, each with the body it ran
+   (bf16 on the tensor cores, ``flash_attention_sm90.cu``; f32 on the CUDA cores,
    ``flash_attention.cu``), the median time of a single call (CUDA
    events, the host's enqueue inside), the plain version's, the time of
    ``scaled_dot_product_attention`` (a yardstick the port never calls)
@@ -87,7 +87,21 @@ stops with a non-zero exit at the first phase that fails:
    kernels at S = 8): ledgers, summaries, timelines, counters and token
    streams exactly equal, the defended streams equal to the calm ones,
    and each kernel launched once per layer of each prefill call;
-8. a JSON line of the kernels, then the card, then the result line.
+8. the port's scenario harness (``repro_torch.core.scenarios.harness``),
+   its fourth main path: 8a. ``run_checks`` with every applicable check on
+   every spec of the standard corpus and on the hybrid variant of
+   ``serve-churn-under-load``, on cuda (serving models drawn on the cpu),
+   each check's seconds printed; the zero-churn bit-equalities in a child
+   with ``CUBLAS_WORKSPACE_CONFIG=:4096:8``; on ``HARNESS_CPU_TOO`` and
+   the hybrid variant the same checks on the cpu, with results, chain
+   plans, timelines, counters and streams equal and losses within
+   ``TRAIN_LOSS_RTOL``; 8b. ``HARNESS_FULL``, full-width variants of
+   corpus specs (``gwtf-llama-300m`` in f32 through the scenario
+   generator), each check with its seconds, wall ms per runtime
+   iteration and peak memory; every check's kernel launches held to one
+   per layer of each prefill call of the serving check, all on the f32
+   body, and none elsewhere;
+9. a JSON line of the kernels, then the card, then the result line.
 
 It needs no network and exits non-zero, printing no result, without a
 GPU or outside a checkout of the repository.
@@ -95,7 +109,9 @@ GPU or outside a checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -119,6 +135,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.flow.graph import geo_distributed_network  # noqa: E402
 from repro_torch.core.runtime.serving import (ServeTrainer,  # noqa: E402
                                               serving_inputs)
+from repro_torch.core.runtime import serving  # noqa: E402
+from repro_torch.core.scenarios import corpus, harness  # noqa: E402
 from repro_torch.core.scenarios import generate as scenarios  # noqa: E402
 from repro_torch.core.scenarios.spec import ScenarioSpec  # noqa: E402
 from repro_torch.core.runtime.trainer import (CentralizedTrainer,  # noqa: E402
@@ -163,7 +181,12 @@ KERNEL_CASES = [
     ("serve cohort of 1", (1, 512, 16, 16, 64), torch.bfloat16, True, None, 2e-2),
     ("serve cohort of 3", (3, 512, 16, 16, 64), torch.bfloat16, True, None, 2e-2),
     ("serve cohort of 4", (4, 512, 16, 16, 64), torch.bfloat16, True, None, 2e-2),
-    # the reduced serves of phase 7b prefill 8 tokens
+    # phase 8b prefills the same cohorts through the harness, f32 (the
+    # standalone decode of its zero-churn stream check: one row)
+    ("f32 serve cohort of 1", (1, 512, 16, 16, 64), torch.float32, True, None, 2e-4),
+    ("f32 serve cohort of 3", (3, 512, 16, 16, 64), torch.float32, True, None, 2e-4),
+    ("f32 serve cohort of 4", (4, 512, 16, 16, 64), torch.float32, True, None, 2e-4),
+    # the reduced serves of phases 7b and 8a prefill 8 tokens
     ("S=8", (1, 8, 16, 16, 64), torch.float32, True, None, 2e-4),
     ("bf16 S=8", (1, 8, 16, 16, 64), torch.bfloat16, True, None, 2e-2),
 ]
@@ -222,17 +245,9 @@ TRAIN_ITERS, TRAIN_CHURN = 3, 0.1
 # TRAIN_FLIP_SHARE of them may do, each by at most 2 lr
 TRAIN_LOSS_RTOL = (1e-4, 1e-3, 1e-3)
 TRAIN_MOMENT_RTOL, TRAIN_PARAM_TOL, TRAIN_FLIP_SHARE = 1e-3, 1e-5, 1e-3
-# phase 7b: the corpus scenario serve-churn-under-load
-# (src/repro/core/scenarios/corpus.py:191-202), field for field
-SERVE_CHURN = dict(
-    name="serve-churn-under-load", seed=28, topology="geo", num_stages=3,
-    relays_per_stage=3, num_data_nodes=1, data_capacity=4,
-    capacity_range=(2, 4), iterations=4, microbatches=4, model_layers=2,
-    model_d=32, model_vocab=128, seq_len=16, microbatch_size=1, prompt_len=8,
-    gen_tokens=48, serve_batch=4,
-    arrivals=[{"kind": "spike", "at_iteration": 1, "requests": 4, "when": 0.2},
-              {"kind": "poisson", "rate": 1.0}],
-    churn=[{"kind": "trace", "events": [[1, "crash", 5, 0.4]]}])
+# phase 7b: the corpus scenario serve-churn-under-load, from the port's
+# copy of the corpus
+SERVE_CHURN = "serve-churn-under-load"
 # phase 7: a full-width variant of it, not the corpus's traffic: prompt
 # 512, as phase 4 prefills, and the profile of the model served.  The
 # engine prices a prefill at prompt_len / (microbatch_size x seq_len)
@@ -250,6 +265,27 @@ SERVE_CHURN_FULL = dict(
 SERVE_CHURN_MODELS = [{}, {"model": "hymba-1.5b", "model_d": 64}]
 SERVE_COUNTERS = ("prefill_calls", "decode_dispatches", "stacked_rows",
                   "replay_steps")
+# phase 8a: the corpus specs whose checks also run on the cpu, and the
+# hybrid variant of the serving scenario swept beside the corpus
+HARNESS_CPU_TOO = ("trace-crash-rejoin", "adversarial-corrupt", SERVE_CHURN)
+HARNESS_HYBRID = (SERVE_CHURN, SERVE_CHURN_MODELS[1])
+# phase 8b: full-width variants of corpus specs, so that the scenario
+# generator's model_config gives gwtf-llama-300m at full width, in f32;
+# each is (spec name, corpus spec, changes, checks run in this process)
+FULL_WIDTH = dict(model_layers=16, model_d=1024, model_vocab=32000, seq_len=512)
+HARNESS_FULL = [
+    ("geo-zero-churn, full-width variant", "geo-zero-churn", {},
+     ["sim-runtime"]),
+    ("trace-crash-rejoin, full-width variant", "trace-crash-rejoin", {},
+     ["sim-runtime"]),
+    (SERVE_CHURN_FULL["name"], SERVE_CHURN, SERVE_CHURN_FULL,
+     ["serving-invariants", "serving-consistency"]),
+    (SERVE_CHURN_FULL["name"] + ", churn stripped", SERVE_CHURN,
+     {**SERVE_CHURN_FULL, "churn": []},
+     ["serving-invariants", "serving-consistency"])]
+# run in a child with CUBLAS_WORKSPACE_CONFIG set (the zero-churn check's
+# bit-equalities): every corpus spec zero-churn applies to, then this one
+HARNESS_FULL_ZERO_CHURN = HARNESS_FULL[0][:3]
 
 
 def attended_pairs(S: int, causal: bool, window) -> int:
@@ -865,8 +901,7 @@ def phase_serve_churn():
     """Serve under churn at full width as the main path; returns each
     kernel's launches summed over the three runs, each counted from 0."""
     cfg = get_config("gwtf-llama-300m")
-    spec = ScenarioSpec(**{**SERVE_CHURN, **SERVE_CHURN_FULL})
-    spec.validate()
+    spec = corpus.get_scenario(SERVE_CHURN).replace(**SERVE_CHURN_FULL)
     print(f"== 7. serve under churn: {cfg.name} full width ({cfg.num_layers} "
           f"layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}, bf16 params, "
           f"f32 cache) through ServeTrainer on {spec.name}: {spec.num_stages} "
@@ -967,8 +1002,7 @@ def phase_serve_churn_vs_cpu():
     print("== 7b. serve under churn, reduced f32: cuda against cpu")
     launches = {"flash_attention": 0, "ssd_scan": 0}
     for over in SERVE_CHURN_MODELS:
-        spec = ScenarioSpec(**{**SERVE_CHURN, **over})
-        spec.validate()
+        spec = corpus.get_scenario(SERVE_CHURN).replace(**over)
         runs = {}
         for device in ("cpu", "cuda"):
             for label, s in (("defended", spec),
@@ -1028,11 +1062,253 @@ def phase_serve_churn_vs_cpu():
     return launches
 
 
+@contextlib.contextmanager
+def recorded_builders():
+    """Wrap, for the block, the port's scenario builders that the harness
+    calls (``generate.build_runtime``, ``generate.build_serving_runtime``)
+    to record every trainer they build; each trainer's ``walls`` gets the
+    wall ms of each iteration (the device synchronized on both sides) and a
+    training runtime's ``results`` each ``IterationResult``."""
+    built = {"runtime": [], "serving": []}
+    real = {"runtime": scenarios.build_runtime,
+            "serving": scenarios.build_serving_runtime}
+
+    def timed(tr):
+        tr.walls, tr.results, step = [], [], tr.iteration
+
+        def iteration(*args):
+            sync = tr.device.type == "cuda"
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*args)
+            if sync:
+                torch.cuda.synchronize()
+            tr.walls.append((time.perf_counter() - t0) * 1e3)
+            tr.results.append(out)
+            return out
+        tr.iteration = iteration
+
+    def build_runtime(spec, **kw):
+        tr, batches = real["runtime"](spec, **kw)
+        timed(tr)
+        built["runtime"].append(tr)
+        return tr, batches
+
+    def build_serving_runtime(spec, **kw):
+        tr = real["serving"](spec, **kw)
+        timed(tr)
+        built["serving"].append(tr)
+        return tr
+
+    scenarios.build_runtime = build_runtime
+    scenarios.build_serving_runtime = build_serving_runtime
+    try:
+        yield built
+    finally:
+        scenarios.build_runtime = real["runtime"]
+        scenarios.build_serving_runtime = real["serving"]
+
+
+@contextlib.contextmanager
+def serving_inputs_drawn_on_cpu():
+    """For the block, ``serving_inputs`` draws the model and prompts on the
+    CPU and moves them to the device asked for, so that a serving check
+    on cuda and on cpu runs one model (drawn on the card, the draws
+    differ)."""
+    real = serving.serving_inputs
+
+    def drawn(cfg, *, seed, batch, prompt_len, device="cuda"):
+        model, prompt, _ = real(cfg, seed=seed, batch=batch,
+                                prompt_len=prompt_len, device="cpu")
+        return model.to(device), prompt.to(device), None
+
+    serving.serving_inputs = drawn
+    try:
+        yield
+    finally:
+        serving.serving_inputs = real
+
+
+def harness_launches(spec, name: str, out) -> dict:
+    """The kernel launches a check must make: one flash launch per
+    attention layer and one SSD launch per SSM layer of each prefill call
+    of the serving check (the ServeTrainer's and the standalone decode's);
+    none elsewhere (training attends through ``_online_attention``)."""
+    calls = (out["prefill_calls"] + out["streams_checked"]
+             if name == "serving-consistency" else 0)
+    cfg = scenarios.model_config(spec)
+    return {"flash_attention": cfg.num_layers * calls if cfg.has_attention else 0,
+            "ssd_scan": cfg.num_layers * calls if cfg.has_ssm else 0}
+
+
+def run_harness(spec, checks, device="cuda", launches=None, details=False):
+    """``harness.run_checks`` one check at a time on ``device``; returns
+    ``(results, {check: seconds}, recorded trainers)``.  On cuda each
+    check's kernel launches are counted from 0, held to
+    ``harness_launches`` (every flash launch on the f32 body: the
+    scenario models are f32) and added to ``launches``; ``details``
+    prints each check's wall ms per runtime iteration and peak memory."""
+    results, secs = {}, {}
+    with recorded_builders() as built:
+        for name in checks:
+            before = {k: len(v) for k, v in built.items()}
+            if device == "cuda":
+                # trainers an earlier check dropped may sit in reference
+                # cycles (the recorder's wrapper is one): free them first
+                gc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+            reset_launches()
+            t0 = time.perf_counter()
+            results.update(harness.run_checks(spec, [name], device=device))
+            secs[name] = time.perf_counter() - t0
+            if device != "cuda":
+                continue
+            got, want = read_launches(), harness_launches(spec, name,
+                                                         results[name])
+            f32 = fa.BODY_LAUNCHES[fa.LIBRARY.name]
+            if got != want or f32 != want["flash_attention"]:
+                raise SystemExit(f"{spec.name} {name}: kernel launches {got} "
+                                 f"(f32 body {f32}), want {want}")
+            for k in launches:
+                launches[k] += got[k]
+            if details:
+                walls = [w for kind in built
+                         for tr in built[kind][before[kind]:] for w in tr.walls]
+                print(f"  {name}: {secs[name]:.1f} s, wall ms a runtime "
+                      f"iteration {spread(walls)}, peak memory "
+                      f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+                      f"({held / 2**30:.2f} GiB held when it started), "
+                      f"launches {got}; {summary(results[name])}")
+    return results, secs, built
+
+
+def summary(out: dict) -> str:
+    """A check's result without the serving summary's columns."""
+    return str({k: v for k, v in out.items() if k != "summary"})
+
+
+def same_harness_runs(label: str, cpu, gpu):
+    """The same checks on cpu and on cuda: results, chain plans, timelines,
+    counters and streams equal, losses within ``TRAIN_LOSS_RTOL``."""
+    (rc, _, bc), (rg, _, bg) = cpu, gpu
+    if rc != rg:
+        raise SystemExit(f"{label}: results differ, cpu {rc}, cuda {rg}")
+    worst = 0.0
+    for tc, tg in zip(bc["runtime"], bg["runtime"]):
+        if getattr(tc.policy, "plans", None) != getattr(tg.policy, "plans",
+                                                         None):
+            raise SystemExit(f"{label}: chain plans differ")
+        if [vars(r) for r in tc.timeline.records] != [
+                vars(r) for r in tg.timeline.records]:
+            raise SystemExit(f"{label}: fault timelines differ")
+        for it, (a, b) in enumerate(zip(tc.results, tg.results)):
+            if {**vars(a), "loss": 0} != {**vars(b), "loss": 0}:
+                raise SystemExit(f"{label} iteration {it}: counters differ, "
+                                 f"cpu {a}, cuda {b}")
+            rel = abs(b.loss - a.loss) / abs(a.loss)
+            worst = max(worst, rel)
+            if rel > TRAIN_LOSS_RTOL[min(it, len(TRAIN_LOSS_RTOL) - 1)]:
+                raise SystemExit(f"{label} iteration {it}: loss cpu "
+                                 f"{a.loss!r}, cuda {b.loss!r}")
+    for tc, tg in zip(bc["serving"], bg["serving"]):
+        if not (tc.engine.chain_plans == tg.engine.chain_plans
+                and tc.engine.traces == tg.engine.traces
+                and [vars(r) for r in tc.timeline.records]
+                == [vars(r) for r in tg.timeline.records]
+                and all(getattr(tc, c) == getattr(tg, c)
+                        for c in SERVE_COUNTERS)
+                and all(tc.token_stream(r) == tg.token_stream(r)
+                        for r in tc.engine.requests)):
+            raise SystemExit(f"{label}: the serving runs differ")
+    if len(bc["runtime"]) != len(bg["runtime"]) or len(bc["serving"]) != len(
+            bg["serving"]):
+        raise SystemExit(f"{label}: trainers built differ")
+    return worst
+
+
+def harness_specs():
+    """The standard corpus, then the hybrid variant of the serving
+    scenario, each with its applicable checks (zero-churn runs apart)."""
+    specs = list(corpus.load_corpus())
+    name, over = HARNESS_HYBRID
+    specs.append(corpus.get_scenario(name).replace(
+        name=f"{name}, {over['model']} variant", **over))
+    return [(s, [c for c, (_, ok) in harness.CHECKS.items()
+                 if ok(s) and c != "zero-churn"]) for s in specs]
+
+
+def phase_harness():
+    """The harness over the reduced corpus on cuda (8a), then full-width
+    variants (8b); returns each kernel's launches over the phase."""
+    print("== 8a. the scenario harness over the reduced corpus on cuda "
+          "(models drawn on the cpu)")
+    launches = {"flash_attention": 0, "ssd_scan": 0}
+    with serving_inputs_drawn_on_cpu():
+        for spec, checks in harness_specs():
+            gpu = run_harness(spec, checks, "cuda", launches)
+            line = ", ".join(f"{c} {t:.2f} s" for c, t in gpu[1].items())
+            if spec.name.split(",")[0] in HARNESS_CPU_TOO:
+                worst = same_harness_runs(spec.name, run_harness(
+                    spec, checks, "cpu"), gpu)
+                line += (f"; cuda = cpu (results, plans, timelines, counters,"
+                         f" streams; losses within {worst:.3g})")
+            print(f"{spec.name}: {line}")
+    zero_churn_child()
+    print("== 8b. the scenario harness at full width (gwtf-llama-300m, "
+          "f32) on cuda")
+    for name, base, over, checks in HARNESS_FULL:
+        spec = corpus.get_scenario(base).replace(**{**FULL_WIDTH, **over,
+                                                    "name": name})
+        print(f"{spec.name}: {spec.num_stages} stages x "
+              f"{spec.relays_per_stage} relays, {spec.num_data_nodes} data "
+              f"nodes, {spec.microbatches} microbatches of "
+              f"{spec.microbatch_size} x {spec.seq_len}, churn {spec.churn}")
+        run_harness(spec, checks, "cuda", launches, details=True)
+        torch.cuda.empty_cache()
+    print(f"launches over phase 8 {launches}, one per layer of each "
+          f"prefill call, all on the f32 body")
+    return launches
+
+
+def zero_churn_child():
+    print("-- zero-churn in a child with CUBLAS_WORKSPACE_CONFIG=:4096:8")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "--harness-zero-churn"], env=env,
+                          capture_output=True, text=True, timeout=600)
+    print(proc.stdout, end="")
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        raise SystemExit(f"zero-churn child exited {proc.returncode}")
+
+
+def harness_zero_churn() -> int:
+    """``check_zero_churn`` (its bit-equalities) on every corpus spec it
+    applies to, then on the full-width variant of ``geo-zero-churn``."""
+    launches = {"flash_attention": 0, "ssd_scan": 0}
+    for spec in corpus.load_corpus():
+        if harness.CHECKS["zero-churn"][1](spec):
+            _, secs, _ = run_harness(spec, ["zero-churn"], "cuda", launches)
+            print(f"{spec.name}: zero-churn {secs['zero-churn']:.2f} s")
+    name, base, over = HARNESS_FULL_ZERO_CHURN
+    spec = corpus.get_scenario(base).replace(**{**FULL_WIDTH, **over,
+                                                "name": name})
+    print(f"{spec.name}:")
+    run_harness(spec, ["zero-churn"], "cuda", launches, details=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--train-identities", action="store_true",
                     help="run only phase 6b's bit-identity checks (the child "
                          "process phase 6b starts)")
+    ap.add_argument("--harness-zero-churn", action="store_true",
+                    help="run only phase 8's zero-churn checks (the child "
+                         "process phase 8a starts)")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs a GPU",
@@ -1043,6 +1319,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     if opts.train_identities:
         return train_identities()
+    if opts.harness_zero_churn:
+        return harness_zero_churn()
 
     start = time.perf_counter()
 
@@ -1079,6 +1357,12 @@ def main(argv=None) -> int:
         for name, n in phase().items():
             launches[name] += n
     took("7-7b")
+
+    # the scenario harness: every check's launches counted from 0
+    torch.cuda.empty_cache()
+    for name, n in phase_harness().items():
+        launches[name] += n
+    took("8a-8b")
 
     kernels = [
         # the main path's body (bf16) is the source; f32 runs the other

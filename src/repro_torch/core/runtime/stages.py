@@ -6,8 +6,9 @@ blocks along a leading axis): a norm scale is (L, D), so AdamW's
 ``ndim >= 2`` rule decays it there as in JAX, and checkpoint leaves line
 up with the JAX package's.  ``stage_forward`` unbinds the stack into one
 view per layer for ``transformer._apply_block`` and runs causal attention
-through ``_online_attention`` (``use_kernel=False``, as the JAX stage
-does: the flash kernel has no backward).
+through ``_online_attention`` and an SSM layer's scan through
+``ssd_chunked`` (``use_kernel=False``, as the JAX stage does: neither
+kernel has a backward).
 
 * ``forward_fused(s, params, x)`` — one forward under autograd on a
   detached input and detached parameter leaves that require grad.  The
@@ -63,6 +64,12 @@ def init_stage_params(cfg: ModelConfig, stage: int, num_stages: int,
     layer axis, drawn from ``generator`` at the JAX package's scales."""
     lo, hi = stage_bounds(cfg, stage, num_stages)
     dtype = DTYPES[cfg.param_dtype]
+    if hi == lo:
+        # more stages than layers: a block's leaves with a leading axis of
+        # 0, as JAX's vmap over no keys gives (the template's draw leaves
+        # ``generator`` untouched)
+        block = _init_block(torch.Generator(device=device), cfg, dtype, device)
+        return tree_map(lambda t: t.new_empty((0, *t.shape)), block)
     blocks = [_init_block(generator, cfg, dtype, device) for _ in range(hi - lo)]
     return tree_map(lambda *ts: torch.stack(ts), *blocks)
 
@@ -166,9 +173,11 @@ def _forward_residuals(cfg: ModelConfig, params, x) -> Tuple[torch.Tensor,
 
 def _backward_residuals(resid: Residuals, g) -> Tuple[Any, torch.Tensor]:
     with torch.enable_grad():
+        # a stage with no blocks uses none of its (empty) leaves
         grads = torch.autograd.grad(resid.out, resid.params + [resid.x], g,
-                                    retain_graph=True)
-    return unflatten(resid.spec, list(grads[:-1])), grads[-1]
+                                    retain_graph=True, allow_unused=True)
+    return (unflatten(resid.spec, _with_zeros(resid.params, grads[:-1])),
+            grads[-1])
 
 
 def _with_zeros(flat, grads) -> List[torch.Tensor]:

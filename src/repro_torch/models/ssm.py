@@ -7,7 +7,9 @@ kernel (``kernels/csrc/ssd_scan.cu``) and lives beside the kernels' other
 plain versions in ``kernels/ref.py``.  ``apply_mamba``'s multi-token
 branch (prefill, and every step without a cache) goes through
 ``kernels.ops.ssd_scan``, which launches the kernel on CUDA and runs
-``ssd_chunked`` on the CPU.  Single-token decode updates the
+``ssd_chunked`` on the CPU; with ``use_kernel=False`` (the training
+stages, which differentiate it) through ``ssd_chunked`` on every device.
+Single-token decode updates the
 (conv_state, ssm_state) cache in O(1) with ``ssd_decode_step``, plain
 PyTorch in both packages.
 
@@ -80,11 +82,13 @@ def _causal_conv(x, w, b, state=None):
     return y, new_state
 
 
-def apply_mamba(p, x, cfg: ModelConfig, *, cache=None):
+def apply_mamba(p, x, cfg: ModelConfig, *, cache=None, use_kernel: bool = True):
     """x: (B, S, D). cache: dict(conv=(B,K-1,conv_dim), ssm=(B,H,P,N)) or None.
 
     Unlike JAX, the cache is updated in place (it is a view into the
     model's stacked cache) and returned.  Returns (out, cache).
+    ``use_kernel=False`` (the training stages) scans with the plain
+    version, which autograd differentiates: the kernel has no backward.
     """
     B_, S, _ = x.shape
     di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
@@ -108,7 +112,8 @@ def apply_mamba(p, x, cfg: ModelConfig, *, cache=None):
         y = y[:, None].to(x.dtype)                                  # (B,1,H,P)
     else:
         h0 = cache["ssm"] if cache is not None else None
-        y, h = kops.ssd_scan(xh, dt, A, Bc, Cc, h0=h0)
+        scan = kops.ssd_scan if use_kernel else kops.ssd_scan_plain
+        y, h = scan(xh, dt, A, Bc, Cc, h0=h0)
     if cache is not None:
         cache["conv"].copy_(new_conv)
         cache["ssm"].copy_(h)

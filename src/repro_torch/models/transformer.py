@@ -127,11 +127,12 @@ def _apply_block(bp: Block, x, cfg: ModelConfig, *, positions, window, cache,
     (``{"attn": ..., "ssm": ...}`` as the model has them), written in place.
     ``bp`` is anything with the layer's parameter dicts as attributes (a
     ``Block``, or one layer's view of a stacked stage tree); ``use_kernel``
-    goes to ``apply_attention``."""
+    goes to ``apply_attention`` and ``apply_mamba``."""
     h = L.apply_norm(bp.ln1, x, cfg)
     if cfg.arch_type == "ssm":
         out, _ = SSM.apply_mamba(bp.mamba, h, cfg,
-                                 cache=cache["ssm"] if cache else None)
+                                 cache=cache["ssm"] if cache else None,
+                                 use_kernel=use_kernel)
         return x + out
 
     a_out, _ = L.apply_attention(bp.attn, h, cfg, positions=positions,
@@ -141,7 +142,8 @@ def _apply_block(bp: Block, x, cfg: ModelConfig, *, positions, window, cache,
                                  use_kernel=use_kernel)
     if cfg.arch_type == "hybrid":
         s_out, _ = SSM.apply_mamba(bp.mamba, h, cfg,
-                                   cache=cache["ssm"] if cache else None)
+                                   cache=cache["ssm"] if cache else None,
+                                   use_kernel=use_kernel)
         x = x + 0.5 * (a_out + s_out)
     else:
         x = x + a_out

@@ -4,8 +4,9 @@ In a fresh interpreter whose ``sys.meta_path`` refuses ``jax``, ``jaxlib``
 and ``repro`` (matched on the whole first name, so ``repro_torch`` passes),
 every module of ``repro_torch`` and ``chip_smoke.py`` import, and importing
 ``chip_smoke.py`` builds, loads and launches no kernel.  The training
-path's and the flow-routed serving path's modules, the copies of the
-numpy flow/sim/scenario/data modules among them, are on the list.
+path's, the flow-routed serving path's and the scenario harness's
+modules, the copies of the numpy flow/sim/scenario/data modules among
+them, are on the list.
 """
 import os
 import subprocess
@@ -41,7 +42,11 @@ TRAINING = ["checkpoint.store", "core.executor", "core.flow.decentralized",
             # the flow-routed serving slice
             "core.sim.engine", "core.sim.metrics", "core.sim.facade",
             "core.flow.reference", "core.scenarios.generate",
-            "core.runtime.serving"]
+            "core.runtime.serving",
+            # the scenario harness and the remaining numpy copies
+            "core.scenarios.harness", "core.scenarios.corpus",
+            "core.flow.hierarchy", "core.sim.reference", "core.simulator",
+            "core.join", "core.membership"]
 missing = [m for m in TRAINING if "repro_torch." + m not in names]
 assert not missing, missing
 for name in names:
@@ -71,4 +76,4 @@ def test_port_imports_nothing_of_jax():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split()[-1])
-    assert n >= 47, proc.stdout
+    assert n >= 54, proc.stdout

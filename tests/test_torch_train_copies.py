@@ -8,8 +8,9 @@ are copies under ``src/repro_torch/``.  Two guards hold them equal:
 * each copy matches its original line for line once the original's
   ``repro.`` imports are rewritten to ``repro_torch.``; the port's text
   cites no numbered change of the reference's history, so the lines named
-  in ``CITED`` (two comments of ``core/scenarios/spec.py``) must differ
-  from the original in such a citation and nothing else;
+  in ``CITED`` (two comments of ``core/scenarios/spec.py``, one of
+  ``core/scenarios/corpus.py``) must differ from the original in such a
+  citation and nothing else;
 * once for each package boundary (a smoke test: the first guard already
   makes the code the same), both packages plan the same complete flows
   with the same RNG stream, draw the same churn, record the same fault
@@ -46,12 +47,16 @@ COPIES = ["data/pipeline.py", "core/flow/graph.py", "core/flow/decentralized.py"
           "core/sim/timeline.py", "core/sim/policies.py", "core/sim/metrics.py",
           "core/sim/engine.py", "core/sim/facade.py", "core/sim/__init__.py",
           "core/flow/reference.py", "core/scenarios/spec.py",
-          "core/scenarios/generate.py", "core/scenarios/__init__.py"]
+          "core/scenarios/generate.py", "core/scenarios/__init__.py",
+          "core/flow/hierarchy.py", "core/sim/reference.py",
+          "core/simulator.py", "core/join.py", "core/membership.py",
+          "core/scenarios/corpus.py"]
 IMPORT = re.compile(r"^(\s*)(from|import) repro\.")
 # a comment's citation of a numbered change: ", <KIND> <n>)" or " (<KIND> <n>)"
 CITATION = re.compile(r"(, [A-Z]+ \d+(?=\))| \([A-Z]+ \d+\))")
 # the only lines of the copies that word the original without its citation
-CITED = {"core/scenarios/spec.py": {60, 88}}
+CITED = {"core/scenarios/spec.py": {60, 88},
+         "core/scenarios/corpus.py": {111}}
 SEED = 7
 
 

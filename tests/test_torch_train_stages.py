@@ -6,7 +6,8 @@ run the same numpy inputs.  The stage forward, its ``(dparams, dx)``
 against ``jax.vjp`` of the reference stage, ``head_loss`` and
 ``embed_backward`` agree within 2e-4 of the largest magnitude (f32,
 reduced ``gwtf-llama-300m``).  Inside the port, the fused path equals the
-rematerialising one bit for bit, and neither reaches the flash kernel.
+rematerialising one bit for bit, and neither reaches the flash kernel,
+nor, for SSM and hybrid stages, the SSD kernel.
 """
 import dataclasses
 
@@ -178,6 +179,29 @@ def test_training_path_never_reaches_the_flash_kernel(setup, monkeypatch):
     sc.backward_from_residuals(0, resid, torch.ones_like(x))
     with pytest.raises(AssertionError, match="flash kernel"):
         TL.apply_attention(layer["attn"], x, tcfg, positions=pos)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "hymba-1.5b"])
+def test_training_path_never_reaches_the_ssd_kernel(monkeypatch, arch):
+    """The stages scan an SSM layer with ``ssd_chunked``, which autograd
+    differentiates, never with the SSD kernel, which has no backward: on
+    the card the kernel's output would cut the scan's gradient.  The
+    backward reaches every SSM parameter."""
+    from repro_torch.core.runtime import cache as tcache
+
+    cfg = get_config(arch).reduced(num_layers=2, d_model=64)
+
+    def refuse(*a, **k):
+        raise AssertionError("the training path called the SSD kernel")
+
+    monkeypatch.setattr(kops, "ssd_scan", refuse)
+    stage_p, _ = tcache.initial_params(cfg, 1, 0, "cpu")
+    x = torch.from_numpy(_np(np.random.default_rng(3), 2, 16, 64))
+    sc = StageCompute(cfg, 1)
+    _, resid = sc.forward_fused(0, stage_p[0], x)
+    grads, _ = sc.backward_from_residuals(0, resid, torch.ones_like(x))
+    for leaf in ("in_proj", "A_log", "dt_bias", "conv_w"):
+        assert grads["mamba"][leaf].abs().max() > 0, leaf
 
 
 def test_dropped_residuals_free_their_saved_tensors(setup):
