@@ -10,9 +10,10 @@ stops with a non-zero exit at the first phase that fails:
 1. device: the card's name and power limit, torch and CUDA versions, each
    kernel's build time and ptxas register and spill lines;
 2. the flash-attention kernel against its plain PyTorch version on the
-   card, at the three serving shapes, the cohorts of 1, 3 and 4 rows that
+   card, at the serving shapes of phase 4's ten models (head_dim 64, 128
+   and, for ``gemma-7b``, 256), the cohorts of 1, 3 and 4 rows that
    phase 7 prefills in bf16 and phase 8b in f32, and at f32, ragged, GQA,
-   windowed, non-causal and S = 8 shapes, each with the body it ran
+   windowed, non-causal, S = 8 and D = 256 shapes, each with the body it ran
    (bf16 on the tensor cores, ``flash_attention_sm90.cu``; f32 on the CUDA cores,
    ``flash_attention.cu``), the median time of a single call (CUDA
    events, the host's enqueue inside), the plain version's, the time of
@@ -33,19 +34,23 @@ stops with a non-zero exit at the first phase that fails:
    CUDA cores' f32 rate and at the tensor cores' 3xTF32 rate (no single
    PyTorch call computes it), then the device times per call, as for
    flash;
-4. ``gwtf-llama-300m``, ``tinyllama-1.1b``, ``mamba2-130m`` and
-   ``hymba-1.5b`` served at full width (bf16 params, f32 cache, batch 8,
-   prompt 512, 32 greedy tokens) through
+4. ``gwtf-llama-300m``, ``tinyllama-1.1b``, ``mamba2-130m``,
+   ``hymba-1.5b``, ``qwen1.5-4b``, ``starcoder2-7b``, ``gwtf-llama-7b``,
+   ``gemma-7b`` (head_dim 256), ``granite-moe-3b-a800m`` and
+   ``qwen2-moe-a2.7b`` (dense experts, as JAX serves) served at full width
+   (bf16 params, f32 cache, batch 8, prompt 512, 32 greedy tokens) through
    ``repro_torch.launch.serve.generate``, one model on the card at a time,
    each kernel's launches counted over exactly each serve (the main path)
    and held to one per attention or SSM layer of the prefill, every flash
    launch on the bf16 tensor-core body, then where the
    time goes: wall time, device busy time, the top kernels and the port's
    own kernels (each with its share of the busy time) of one prefill and
-   of 8 decode steps, from ``torch.profiler``;
+   of 8 decode steps, from ``torch.profiler`` (the MoE models' with the
+   device's activity only);
 5. the port on the GPU against the port on the CPU, reduced f32 models of
-   all four families' configs on the same weights: logits within 1e-3,
-   greedy streams equal;
+   every served config and a ``gemma-7b`` variant that keeps head_dim 256,
+   on the same weights: logits within 1e-3, greedy streams equal, one
+   launch per layer on the f32 body;
 6. training, the port's second main path: ``gwtf-llama-300m`` at full
    width (16 layers, bf16 params) through ``repro_torch.launch.train``'s
    ``build_gwtf`` and ``train_iteration``, 4 stages x 3 relays of capacity
@@ -67,7 +72,11 @@ stops with a non-zero exit at the first phase that fails:
    counters equal, each loss within ``TRAIN_LOSS_RTOL``, the AdamW
    moments (which see the gradients' magnitudes) within
    ``TRAIN_MOMENT_RTOL`` after the first and the third, the parameters
-   after the first as stated at ``TRAIN_PARAM_TOL``;
+   after the first as stated at ``TRAIN_PARAM_TOL``; 6d. the paper's 7B
+   model (``gwtf-llama-7b``) at full width, cut in depth to
+   ``TRAIN_7B_LAYERS`` layers, through ``launch.train``'s ``build_gwtf``
+   over 2 stages for ``TRAIN_7B_ITERS`` iterations: loss, counters, ms,
+   tokens/s, peak memory;
 7. serving under churn, the port's third main path: ``gwtf-llama-300m``
    at full width (bf16 params, f32 cache) through the flow-routed
    ``ServeTrainer`` on a full-width variant of the corpus scenario
@@ -101,7 +110,12 @@ stops with a non-zero exit at the first phase that fails:
    iteration and peak memory; every check's kernel launches held to one
    per layer of each prefill call of the serving check, all on the f32
    body, and none elsewhere;
-9. a JSON line of the kernels, then the card, then the result line.
+9. the port's examples (``EXAMPLES``), in this process on cuda and then on
+   the cpu: each exits, prints finite numbers and, around them, the same
+   report on both devices (flows, counters, plans, token ids), its numbers
+   within ``EXAMPLE_RTOL``; ``torch_serve_decode``'s flash launches on
+   cuda held to one per layer of its prefill;
+10. a JSON line of the kernels, then the card, then the result line.
 
 It needs no network and exits non-zero, printing no result, without a
 GPU or outside a checkout of the repository.
@@ -112,6 +126,8 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import importlib.util
+import io
 import json
 import math
 import os
@@ -135,6 +151,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.flow.graph import geo_distributed_network  # noqa: E402
 from repro_torch.core.runtime.serving import (ServeTrainer,  # noqa: E402
                                               serving_inputs)
+from repro_torch.core.runtime import cache as train_cache  # noqa: E402
 from repro_torch.core.runtime import serving  # noqa: E402
 from repro_torch.core.scenarios import corpus, harness  # noqa: E402
 from repro_torch.core.scenarios import generate as scenarios  # noqa: E402
@@ -189,6 +206,24 @@ KERNEL_CASES = [
     # the reduced serves of phases 7b and 8a prefill 8 tokens
     ("S=8", (1, 8, 16, 16, 64), torch.float32, True, None, 2e-4),
     ("bf16 S=8", (1, 8, 16, 16, 64), torch.bfloat16, True, None, 2e-2),
+    # the prefills of the dense and MoE serves that phase 4 adds; gemma-7b
+    # is the one at D = 256
+    ("serve gemma-7b D=256", (8, 512, 16, 16, 256), torch.bfloat16, True, None,
+     2e-2),
+    ("serve starcoder2-7b GQA 36/4", (8, 512, 36, 4, 128), torch.bfloat16, True,
+     None, 2e-2),
+    ("serve qwen1.5-4b", (8, 512, 20, 20, 128), torch.bfloat16, True, None, 2e-2),
+    ("serve gwtf-llama-7b", (8, 512, 32, 32, 128), torch.bfloat16, True, None,
+     2e-2),
+    ("serve granite-moe-3b-a800m GQA 24/8", (8, 512, 24, 8, 64), torch.bfloat16,
+     True, None, 2e-2),
+    ("serve qwen2-moe-a2.7b", (8, 512, 16, 16, 128), torch.bfloat16, True, None,
+     2e-2),
+    # D = 256 on the f32 body (phase 5's head_dim-256 variant), and ragged
+    # with a window and GQA on the bf16 body
+    ("f32 S=256 D=256", (2, 256, 8, 8, 256), torch.float32, True, None, 2e-4),
+    ("bf16 D=256 GQA 8/2 window 32 ragged S=200", (2, 200, 8, 2, 256),
+     torch.bfloat16, True, 32, 2e-2),
 ]
 # name, (B, S, H, P, N), dtype, initial state ("zero" as the serving
 # cache passes it, "none", or "random"), packed (x, B and C strided views
@@ -224,9 +259,19 @@ BODY_NAMES = {"flash_attention_sm90": "tensor-core bf16 (flash_attention_sm90.cu
 PORT_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_kernel", "ssd_cb_kernel",
                 "ssd_scan_tf32_kernel")
 SERVE = dict(batch=8, prompt_len=512, gen=32)
+PROFILE_ALL = (ProfilerActivity.CPU, ProfilerActivity.CUDA)
 # a prefill launches the flash kernel once per attention layer and the SSD
 # kernel once per SSM layer; decode launches neither
-SERVE_ARCHS = ["gwtf-llama-300m", "tinyllama-1.1b", "mamba2-130m", "hymba-1.5b"]
+SERVE_ARCHS = ["gwtf-llama-300m", "tinyllama-1.1b", "mamba2-130m", "hymba-1.5b",
+               "qwen1.5-4b", "starcoder2-7b", "gwtf-llama-7b", "gemma-7b",
+               "granite-moe-3b-a800m", "qwen2-moe-a2.7b"]
+# phase 5: every served family reduced, f32, and a gemma-7b variant that
+# keeps head_dim 256 (2 heads of 256 at d_model 512): the f32 D = 256 body
+# inside a model
+GPU_VS_CPU_ARCHS = ["gwtf-gpt-300m", "gwtf-llama-300m", "mamba2-130m",
+                    "hymba-1.5b", "qwen1.5-4b", "starcoder2-7b",
+                    "gwtf-llama-7b", "gemma-7b", "granite-moe-3b-a800m",
+                    "qwen2-moe-a2.7b"]
 # the training phase: launch.train's flags at full width, then the churn
 # of the last three iterations
 TRAIN_ARGS = ["--arch", "gwtf-llama-300m", "--mode", "gwtf", "--stages", "4",
@@ -234,6 +279,15 @@ TRAIN_ARGS = ["--arch", "gwtf-llama-300m", "--mode", "gwtf", "--stages", "4",
               "--microbatches", "4", "--batch", "4", "--seq-len", "512",
               "--churn", "0.0", "--lr", "1e-3", "--seed", "0", "--device", "cuda"]
 TRAIN_ITERS, TRAIN_CHURN = 3, 0.1
+# phase 6d: the paper's 7B model at full width (d_model 4096, d_ff 11008,
+# vocab 32000, bf16), cut in depth only, to TRAIN_7B_LAYERS of its 32
+# layers, over 2 stages; launch.train's flags set the rest
+TRAIN_7B_LAYERS, TRAIN_7B_ITERS = 4, 2
+TRAIN_7B_ARGS = ["--arch", "gwtf-llama-7b", "--mode", "gwtf", "--stages", "2",
+                 "--relays-per-stage", "2", "--capacity", "2", "--data-nodes",
+                 "1", "--microbatches", "2", "--batch", "2", "--seq-len", "512",
+                 "--churn", "0.0", "--lr", "1e-3", "--seed", "0", "--device",
+                 "cuda"]
 # three reduced f32 iterations on cuda against the cpu: each iteration's
 # loss within its TRAIN_LOSS_RTOL (the second and third hang on the
 # updates); the AdamW moments after the first and the third iteration,
@@ -286,6 +340,18 @@ HARNESS_FULL = [
 # run in a child with CUBLAS_WORKSPACE_CONFIG set (the zero-churn check's
 # bit-equalities): every corpus spec zero-churn applies to, then this one
 HARNESS_FULL_ZERO_CHURN = HARNESS_FULL[0][:3]
+# phase 9: the port's examples, run in this process on cuda and on the cpu,
+# with the flash launches each makes on cuda (torch_serve_decode: one
+# prefill of its 4 layers; the rest train, which launches no kernel)
+EXAMPLES = [("torch_quickstart", [], 0),
+            ("torch_decentralized_train",
+             ["--iterations", "3", "--activation-codec", "int8"], 0),
+            ("torch_serve_decode", [], 4),
+            ("torch_scenario_tour", ["trace-crash-rejoin", "--runtime"], 0)]
+# the examples' numbers on cuda against the cpu: losses as TRAIN_LOSS_RTOL's
+# loosest
+EXAMPLE_RTOL = max(TRAIN_LOSS_RTOL)
+NUMBER = re.compile(r"(\d+\.\d+)")
 
 
 def attended_pairs(S: int, causal: bool, window) -> int:
@@ -519,11 +585,15 @@ def read_launches():
 def run_serve(arch: str):
     """Serve ``arch`` at full width as the main path; returns each kernel's
     launches counted over exactly this serve."""
+    t_start = time.perf_counter()
     cfg = get_config(arch)
+    experts = (f", {cfg.num_experts} experts of d_ff {cfg.d_ff}, top "
+               f"{cfg.num_experts_per_tok}, {cfg.num_shared_experts} shared, "
+               f"moe_impl dense" if cfg.is_moe else "")
     print(f"== 4. serve {cfg.name} full width, {cfg.num_layers} layers, "
-          f"d_model {cfg.d_model}, H/KH {cfg.num_heads}/{cfg.num_kv_heads}, "
-          f"SSD heads {cfg.ssm_heads} (N {cfg.ssm_state}), "
-          f"vocab {cfg.vocab_size}, bf16 params, f32 cache")
+          f"d_model {cfg.d_model}, H/KH {cfg.num_heads}/{cfg.num_kv_heads} of "
+          f"{cfg.head_dim}, SSD heads {cfg.ssm_heads} (N {cfg.ssm_state}), "
+          f"vocab {cfg.vocab_size}{experts}, bf16 params, f32 cache")
     model, prompt, g = serving_inputs(cfg, seed=0, batch=SERVE["batch"],
                                       prompt_len=SERVE["prompt_len"],
                                       device="cuda")
@@ -560,10 +630,12 @@ def run_serve(arch: str):
     print("sample:", out.tokens[0, :16].tolist())
     print("where the time goes (torch.profiler):")
     profile_serve(cfg, model, prompt)
+    print(f"{cfg.name}: drawn, served and profiled in "
+          f"{time.perf_counter() - t_start:.1f} s")
     return launches
 
 
-def profile_run(name: str, label: str, fn):
+def profile_run(name: str, label: str, fn, activities=PROFILE_ALL):
     """Run ``fn`` unprofiled once, then timed, then under
     ``torch.profiler``; print the wall time against the device busy time
     and the kernels that take the device's time.  The profiler's own cost
@@ -574,11 +646,10 @@ def profile_run(name: str, label: str, fn):
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
-    profiled(name, label, fn, (time.perf_counter() - t0) * 1e3)
+    profiled(name, label, fn, (time.perf_counter() - t0) * 1e3, activities)
 
 
-def profiled(name: str, label: str, fn, wall=None,
-             activities=(ProfilerActivity.CPU, ProfilerActivity.CUDA)):
+def profiled(name: str, label: str, fn, wall=None, activities=PROFILE_ALL):
     """Run ``fn`` once under ``torch.profiler``; print its profiled wall
     time (and ``wall``, the unprofiled time of the same work, if known)
     against the device busy time, and the kernels that take the device's
@@ -607,7 +678,10 @@ def profiled(name: str, label: str, fn, wall=None,
 
 def profile_serve(cfg, model, prompt, steps: int = 8):
     """Wall time against device busy time for one prefill and ``steps``
-    greedy decode steps, and the kernels that take the device's time."""
+    greedy decode steps, and the kernels that take the device's time.  An
+    MoE model's dense experts launch ~10^4 kernels a decode step: its
+    trace takes the device's activity only (the host's operator events
+    would cost the profiler minutes)."""
     B, P = prompt.shape
 
     def do_prefill():
@@ -622,30 +696,50 @@ def profile_serve(cfg, model, prompt, steps: int = 8):
         for i in range(steps):
             decode_step(model, cfg, tokens=tok, cache=cache, index=P + i)
 
-    profile_run(cfg.name, "prefill", do_prefill)
-    profile_run(cfg.name, f"decode x{steps}", do_decode)
+    activities = [ProfilerActivity.CUDA] if cfg.is_moe else PROFILE_ALL
+    profile_run(cfg.name, "prefill", do_prefill, activities)
+    profile_run(cfg.name, f"decode x{steps}", do_decode, activities)
+
+
+def head_dim_256(cfg):
+    """``gemma-7b`` reduced to 2 layers of d_model 512 with its head_dim 256
+    kept (``reduced`` caps head_dim at 64)."""
+    return dataclasses.replace(cfg.reduced(num_layers=2, d_model=512),
+                               name=f"{cfg.name}-smoke-hd256", num_heads=2,
+                               num_kv_heads=2, head_dim=256)
 
 
 def phase_gpu_vs_cpu():
     print("== 5. port on cuda against port on cpu (f32, TF32 off)")
-    for arch in ("gwtf-gpt-300m", "gwtf-llama-300m", "mamba2-130m", "hymba-1.5b"):
-        cfg = get_config(arch).reduced()
+    cfgs = [get_config(a).reduced() for a in GPU_VS_CPU_ARCHS]
+    for cfg in cfgs + [head_dim_256(get_config("gemma-7b"))]:
         runs = {}
         for device in ("cpu", "cuda"):
             # drawn on the CPU both times, so both runs hold the same weights
             model, prompt, _ = serving_inputs(cfg, seed=0, batch=2,
                                               prompt_len=64, device="cpu")
+            reset_launches()
             runs[device] = generate(model.to(device), cfg, prompt.to(device),
                                     gen=8, window=None, temperature=0.0,
                                     generator=None)
+        # one prefill: each kernel once per layer that has it, flash on
+        # the f32 body
+        want = {"flash_attention": cfg.num_layers if cfg.has_attention else 0,
+                "ssd_scan": cfg.num_layers if cfg.has_ssm else 0}
+        if (read_launches() != want
+                or fa.BODY_LAUNCHES[fa.LIBRARY.name] != want["flash_attention"]):
+            raise SystemExit(f"{cfg.name}: launches {read_launches()}, bodies "
+                             f"{fa.BODY_LAUNCHES}, want {want} on the f32 body")
         cpu, gpu = runs["cpu"], runs["cuda"]
         torch.testing.assert_close(gpu.logits.cpu(), cpu.logits, rtol=1e-3,
                                    atol=1e-3)
         if not torch.equal(gpu.tokens.cpu(), cpu.tokens):
-            raise SystemExit(f"{arch}: greedy streams differ on cuda and cpu")
+            raise SystemExit(f"{cfg.name}: greedy streams differ on cuda and "
+                             f"cpu")
         err = (gpu.logits.cpu() - cpu.logits).abs().max().item()
-        print(f"{cfg.name}: logits max_abs_err {err:.3g} (tol 1e-3) over "
-              f"{cpu.logits.shape[0]} steps, greedy streams equal")
+        print(f"{cfg.name} (head_dim {cfg.head_dim}): logits max_abs_err "
+              f"{err:.3g} (tol 1e-3) over {cpu.logits.shape[0]} steps, greedy "
+              f"streams equal, launches {read_launches()} on the f32 body")
 
 
 def check_counters(r, churn: float):
@@ -816,6 +910,43 @@ def phase_train_vs_cpu():
               f"difference {worst:.3g} (allowed 2 lr = {2 * lr:.3g})")
     print(f"moments held within {TRAIN_MOMENT_RTOL} after iterations 0 and "
           f"{len(TRAIN_LOSS_RTOL) - 1}")
+
+
+def phase_train_7b():
+    """The paper's 7B model, cut in depth only, through ``launch.train``;
+    returns each kernel's launches over the run (0: neither is on the
+    training path)."""
+    args = train.parser().parse_args(TRAIN_7B_ARGS)
+    full = get_config(args.arch)
+    cfg = dataclasses.replace(full, num_layers=TRAIN_7B_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer, shards = train.build_gwtf(args, cfg)
+    torch.cuda.synchronize()
+    print(f"== 6d. train {cfg.name} at full width (d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, {cfg.param_dtype}), cut in depth to "
+          f"{cfg.num_layers} of its {full.num_layers} layers "
+          f"({cfg.param_count() / 1e9:.2f} B params); {args.stages} stages x "
+          f"{args.relays_per_stage} relays, {args.data_nodes} data node x "
+          f"{args.microbatches} microbatches of {args.batch} x {args.seq_len} "
+          f"tokens; trainer built in {time.perf_counter() - t0:.1f}s")
+    reset_launches()                      # the main path starts here
+    for it in range(TRAIN_7B_ITERS):
+        r, secs, tokens = train.train_iteration(trainer, shards)
+        check_counters(r, 0.0)
+        print(f"iter {it}: loss {r.loss:.4f}, completed {r.completed}/"
+              f"{r.launched}, {secs * 1e3:.1f} ms, {tokens / secs:.0f} tok/s, "
+              f"store peak {r.store_peak_bytes / 2**30:.2f} GiB")
+    launches = read_launches()
+    if any(launches.values()) or any(fa.BODY_LAUNCHES.values()):
+        raise SystemExit(f"the training path launched kernels {launches}")
+    print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+          f"launches {launches}")
+    del trainer
+    train_cache.clear()                   # the initial parameters it drew
+    gc.collect()
+    return launches
 
 
 def moment_difference(tg, tc) -> float:
@@ -1301,6 +1432,88 @@ def harness_zero_churn() -> int:
     return 0
 
 
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (its ``main`` not run)."""
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def run_example(name: str, argv, device: str):
+    """``main(argv + --device device)`` of a fresh copy of the example, in
+    this process: ``(stdout, seconds)``.  ``torch_serve_decode`` draws its
+    model and prompt on the cpu and moves them, so both devices serve one
+    model."""
+    module = load_example(name)
+    if hasattr(module, "serving_inputs"):
+        real = module.serving_inputs
+
+        def drawn(cfg, *, seed, batch, prompt_len, device):
+            model, prompt, _ = real(cfg, seed=seed, batch=batch,
+                                    prompt_len=prompt_len, device="cpu")
+            return model.to(device), prompt.to(device), None
+        module.serving_inputs = drawn
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        module.main([*argv, "--device", device])
+    return buf.getvalue(), time.perf_counter() - t0
+
+
+def same_report(name: str, gpu: str, cpu: str):
+    """The text around every number equal (counters, flows, plans, token
+    ids); numbers within ``EXAMPLE_RTOL`` (``gap=``, a difference of two
+    means, within the sum of theirs); times not compared; nothing
+    non-finite."""
+    if re.search(r"\b(nan|inf)\b", gpu + cpu, re.I):
+        raise SystemExit(f"{name}: a non-finite number in\n{gpu}")
+    g_lines, c_lines = gpu.splitlines(), cpu.splitlines()
+    if len(g_lines) != len(c_lines):
+        raise SystemExit(f"{name}: {len(g_lines)} lines on cuda, "
+                         f"{len(c_lines)} on cpu")
+    for g, c in zip(g_lines, c_lines):
+        gs, cs = NUMBER.split(g), NUMBER.split(c)
+        if gs[::2] != cs[::2]:
+            raise SystemExit(f"{name}: cuda printed\n{g}\ncpu\n{c}")
+        means = [float(x) for x in cs[1::2]]
+        for label, after, a, b in zip(gs[::2], gs[2::2], gs[1::2], cs[1::2]):
+            a, b = float(a), float(b)
+            if after.startswith("s)"):             # a time
+                continue
+            tol = EXAMPLE_RTOL * (sum(means[:2]) if label.endswith("gap=")
+                                  else abs(b))
+            if abs(a - b) > tol:
+                raise SystemExit(f"{name}: {label.strip()} {a} on cuda, {b} "
+                                 f"on cpu\n{g}")
+
+
+def phase_examples():
+    """The port's examples on cuda against the same on the cpu; returns each
+    kernel's launches over the cuda runs, each counted from 0."""
+    print("== 9. the examples on cuda against the cpu")
+    launches = {"flash_attention": 0, "ssd_scan": 0}
+    for name, argv, flash in EXAMPLES:
+        reset_launches()                  # the main path starts here
+        gpu, gpu_s = run_example(name, argv, "cuda")
+        got = read_launches()
+        if got != {"flash_attention": flash, "ssd_scan": 0} or fa.BODY_LAUNCHES[
+                fa.LIBRARY.name] != flash:
+            raise SystemExit(f"{name}: launches {got}, bodies "
+                             f"{fa.BODY_LAUNCHES}, want {flash} on the f32 body")
+        for k in launches:
+            launches[k] += got[k]
+        cpu, cpu_s = run_example(name, argv, "cpu")
+        same_report(name, gpu, cpu)
+        print(f"examples/{name}.py {' '.join(argv)}: exit 0, cuda {gpu_s:.1f} "
+              f"s, cpu {cpu_s:.1f} s, the same report (counters exactly, "
+              f"numbers within {EXAMPLE_RTOL}), launches {got}; on cuda:")
+        for line in gpu.splitlines()[-4:]:
+            print(f"    {line}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--train-identities", action="store_true",
@@ -1349,7 +1562,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_train_checks()
     phase_train_vs_cpu()
-    took("6-6c")
+    torch.cuda.empty_cache()
+    phase_train_7b()
+    torch.cuda.empty_cache()
+    took("6-6d")
 
     # serving under churn: each run a main path counted from 0
     torch.cuda.empty_cache()
@@ -1363,6 +1579,12 @@ def main(argv=None) -> int:
     for name, n in phase_harness().items():
         launches[name] += n
     took("8a-8b")
+
+    # the examples: each cuda run a main path counted from 0
+    torch.cuda.empty_cache()
+    for name, n in phase_examples().items():
+        launches[name] += n
+    took("9")
 
     kernels = [
         # the main path's body (bf16) is the source; f32 runs the other

@@ -1,9 +1,9 @@
 """Architecture config registry of the PyTorch port.
 
 The same ids and aliases as ``repro.configs``.  Only the configurations
-that the port runs today (dense, SSM and hybrid) have a copy here; every
-other id raises ``NotImplementedError`` naming the ROADMAP item that
-ports it.
+that the port runs today (dense, SSM, hybrid and MoE) have a copy here;
+every other id raises ``NotImplementedError`` naming the ROADMAP item
+that ports it.
 """
 from __future__ import annotations
 
@@ -12,20 +12,14 @@ import importlib
 from repro_torch.models.config import ModelConfig
 
 PORTED = ["gwtf_llama_300m", "gwtf_gpt_300m", "tinyllama_1_1b", "mamba2_130m",
-          "hymba_1_5b"]
+          "hymba_1_5b", "qwen1_5_4b", "starcoder2_7b", "gwtf_llama_7b",
+          "gemma_7b", "granite_moe_3b_a800m", "qwen2_moe_a2_7b"]
 
 # arch id -> the ROADMAP.md item that brings it to the port
 _NOT_PORTED = {
-    "musicgen_medium": "Queue 1 item 12, model breadth (audio front end)",
-    "granite_moe_3b_a800m": "Queue 1 item 12, model breadth (MoE)",
-    "qwen2_moe_a2_7b": "Queue 1 item 12, model breadth (MoE)",
-    "llama3_2_vision_90b": ("Queue 1 item 12, model breadth "
+    "musicgen_medium": "Queue 1 item 12.3, model breadth (audio front end)",
+    "llama3_2_vision_90b": ("Queue 1 item 12.3, model breadth "
                             "(VLM cross-attention)"),
-    "qwen1_5_4b": "Queue 1 item 12, model breadth (remaining dense configs)",
-    "gemma_7b": ("Queue 1 item 12, model breadth (remaining dense configs; "
-                 "head_dim 256)"),
-    "starcoder2_7b": "Queue 1 item 12, model breadth (remaining dense configs)",
-    "gwtf_llama_7b": "Queue 1 item 12, model breadth (remaining dense configs)",
 }
 
 _ALIASES = {

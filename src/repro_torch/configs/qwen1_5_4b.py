@@ -1,0 +1,18 @@
+"""Qwen1.5-4B — dense decoder with QKV bias. [hf:Qwen/Qwen1.5-0.5B family]"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen1.5-4b",
+    arch_type="dense",
+    num_layers=40,
+    d_model=2560,
+    num_heads=20,
+    num_kv_heads=20,
+    head_dim=128,
+    d_ff=6912,
+    vocab_size=151936,
+    qkv_bias=True,
+    rope_theta=5_000_000.0,
+    sliding_window=4096,
+    source="hf:Qwen/Qwen1.5-0.5B",
+)

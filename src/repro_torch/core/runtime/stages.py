@@ -76,25 +76,25 @@ def init_stage_params(cfg: ModelConfig, stage: int, num_stages: int,
 
 def _block_views(stage_params) -> List[SimpleNamespace]:
     """One view per layer of a stacked stage tree, with the layer's
-    parameter dicts as attributes (what ``_apply_block`` reads).
-    ``unbind`` keeps the views differentiable: the gradients of all layers
-    land in the stacked leaf through one ``stack``."""
-    layers: List[Dict[str, Dict[str, torch.Tensor]]] = []
-    for name, sub in stage_params.items():
-        for leaf, t in sub.items():
-            for i, ti in enumerate(torch.unbind(t, 0)):
-                if i == len(layers):
-                    layers.append({})
-                layers[i].setdefault(name, {})[leaf] = ti
-    return [SimpleNamespace(**bp) for bp in layers]
+    parameter dicts (nested for ``moe``'s ``shared``) as attributes (what
+    ``_apply_block`` reads).  ``unbind`` keeps the views differentiable:
+    the gradients of all layers land in the stacked leaf through one
+    ``stack``."""
+    flat, spec = flatten(stage_params)
+    per_leaf = [torch.unbind(t, 0) for t in flat]
+    n = len(per_leaf[0]) if per_leaf else 0
+    return [SimpleNamespace(**unflatten(spec, [u[i] for u in per_leaf]))
+            for i in range(n)]
 
 
 def stage_forward(stage_params, x, cfg: ModelConfig):
+    """The stage's blocks in order; an MoE block runs the dense experts and
+    drops its auxiliary loss, as the JAX stage does."""
     positions = torch.arange(x.shape[1], device=x.device)
     for bp in _block_views(stage_params):
         x = _apply_block(bp, x, cfg, positions=positions, window=None,
                          cache=None, write_index=None, kv_valid=None,
-                         use_kernel=False)
+                         use_kernel=False, moe_impl="dense")
     return x
 
 

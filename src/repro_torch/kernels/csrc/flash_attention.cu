@@ -16,7 +16,7 @@
 // exactly as the model holds them, so no transpose happens around the call.
 // GQA is native: query head h reads KV head h / (H / KH), with no repeated
 // copy of K and V.  Any S works: rows and keys past S are masked, where the
-// TPU kernel asserted S % block == 0.  D is 64 or 128.
+// TPU kernel asserted S % block == 0.  D is 64, 128 or 256.
 //
 // Design.  One thread block of 256 threads per (batch*head, tile of 64
 // query rows).  Tiles are launched heaviest first, so the long causal rows
@@ -27,7 +27,8 @@
 // scores (rows tr + 16 i, columns tc + 16 j) and 4 x D/16 of the output
 // accumulator, so every value loaded from shared memory feeds two FMAs or
 // more.  Row max and row sum are reduced over the 16 threads of a row with
-// warp shuffles.
+// warp shuffles.  Shared memory is 66 KB at D = 64 and 209 KB at D = 256,
+// where one block fills an SM and the accumulator is 64 floats a thread.
 //
 // Bound on the H100 (SXM, 3.35 TB/s, 67 TFLOP/s f32 outside the tensor
 // cores).  In f32 the causal work, 4 * D * S (S + 1) / 2 per (batch, head),
@@ -218,5 +219,6 @@ extern "C" int flash_attention_fwd(const float* q, const float* k, const float* 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 64) return launch<64>(q, k, v, o, B, S, H, KH, causal, window, scale, st);
   if (D == 128) return launch<128>(q, k, v, o, B, S, H, KH, causal, window, scale, st);
+  if (D == 256) return launch<256>(q, k, v, o, B, S, H, KH, causal, window, scale, st);
   return (int)cudaErrorInvalidValue;
 }

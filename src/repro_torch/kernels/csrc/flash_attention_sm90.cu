@@ -13,10 +13,11 @@
 // as the model holds them.  Each is described to the Tensor Memory
 // Accelerator (TMA) as a 4-D tensor map with dims {D, heads, S, B}, box
 // {64, 1, 64, 1} and 128-byte swizzle, so no transpose happens around the
-// call; a tile at D = 128 is two 64-column boxes.  GQA is native: query
-// head h reads KV head h / (H / KH).  Any S: TMA fills rows past S with
-// zeros, keys at or past S are masked (a zero K row scores 0, not -inf),
-// and the TMA store of the output drops rows past S.  D is 64 or 128.
+// call; a tile at D = 128 or 256 is two or four 64-column boxes.  GQA is
+// native: query head h reads KV head h / (H / KH).  Any S: TMA fills rows
+// past S with zeros, keys at or past S are masked (a zero K row scores 0,
+// not -inf), and the TMA store of the output drops rows past S.  D is 64,
+// 128 or 256.
 //
 // Bound on the H100 (SXM, 3.35 TB/s, 989 TFLOP/s bf16 dense).  At the
 // serving shape B*H = 128, S = 512, D = 64, q, k, v and o are
@@ -28,7 +29,8 @@
 // the grid puts batch*head on x and the query tile on y, counted from the
 // last, so the heaviest causal tiles of every head start first.  Shared
 // memory holds Q (8 KB at D = 64) and a two-stage ring of K and V tiles
-// (2 x 16 KB), about 41 KB, so several blocks share an SM.  Thread 0 loads
+// (2 x 16 KB), about 41 KB, so several blocks share an SM; at D = 256 the
+// five 32 KB tiles take 161 KB, and one block fills an SM.  Thread 0 loads
 // Q and the first two K/V tiles with TMA onto one mbarrier per stage, and
 // refills a stage with the tile two ahead as soon as the warpgroup is done
 // with it, so the next tile's copy overlaps this tile's products.  The
@@ -37,13 +39,16 @@
 // boundary.
 //   S = Q K^T is wgmma m64n64k16 with both operands K-major in shared
 // memory (D/16 steps).  The scale D^-0.5, with log2(e) folded in for
-// exp2, multiplies the f32 scores; at D = 64 it is 2^-3, so this equals
-// the reference's scaling of q.  m, l and the rescale stay in registers in
+// exp2, multiplies the f32 scores; at D = 64 and 256 it is 2^-3 and 2^-4,
+// so this equals the reference's scaling of q.  m, l and the rescale stay in registers in
 // the accumulator's row layout (rows warp*16 + lane/4 and +8, each reduced
 // over the 4 lanes that share it).  P is rounded to bf16 in registers and
 // fed to O += P V as the A operand of wgmma m64n64k16 straight from the
 // score accumulator's layout, without going through shared memory; V is
-// the B operand, MN-major (D contiguous), transpose bit set.  The epilogue
+// the B operand, MN-major (D contiguous), transpose bit set, one n64
+// product per 64-column box of V.  At D = 256 the accumulator O is 128 f32
+// registers a thread, beside the 32 of the scores and the 16 of P in bf16,
+// under the 255 that __launch_bounds__(128) allows.  The epilogue
 // writes acc / max(l, 1e-30) as bf16 into Q's swizzled buffer and stores
 // it with TMA.
 //   Rounding: the JAX kernel multiplies P in f32 (flash_attention.py:76-77);
@@ -495,7 +500,7 @@ cudaError_t launch(const CUtensorMap& q, const CUtensorMap& k, const CUtensorMap
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int B, int S, int H, int KH, int D, int causal,
                                    int window, float scale, void* stream) {
-  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  if (D != 64 && D != 128 && D != 256) return (int)cudaErrorInvalidValue;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
   CUtensorMap maps[4];
@@ -510,6 +515,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   if (D == 64)
     return launch<64>(maps[0], maps[1], maps[2], maps[3], B, S, H, KH, causal, window,
                       scale_log2, st);
-  return launch<128>(maps[0], maps[1], maps[2], maps[3], B, S, H, KH, causal, window,
+  if (D == 128)
+    return launch<128>(maps[0], maps[1], maps[2], maps[3], B, S, H, KH, causal, window,
+                       scale_log2, st);
+  return launch<256>(maps[0], maps[1], maps[2], maps[3], B, S, H, KH, causal, window,
                      scale_log2, st);
 }

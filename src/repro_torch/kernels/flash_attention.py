@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.kernels.build import KernelLibrary
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 
 
 def _bind(lib: ctypes.CDLL) -> None:

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,15 +27,20 @@ from repro_torch.configs import get_config
 from repro_torch.core.executor import DecentralizedTrainer, IterationResult
 from repro_torch.core.flow.graph import geo_distributed_network
 from repro_torch.data.pipeline import DataConfig, DataNodeShard
+from repro_torch.models.config import ModelConfig
 
 
-def build_gwtf(args) -> Tuple[DecentralizedTrainer, Dict[int, DataNodeShard]]:
+def build_gwtf(args, cfg: Optional[ModelConfig] = None
+               ) -> Tuple[DecentralizedTrainer, Dict[int, DataNodeShard]]:
     """The trainer over a seeded geo-distributed network, and one data
-    shard per data node."""
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced(num_layers=max(args.stages, args.layers),
-                          d_model=args.d_model)
+    shard per data node.  ``cfg`` trains that config in place of
+    ``--arch`` (and ``--reduced``): a cut the flags do not express, such as
+    a model at full width with fewer layers."""
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = cfg.reduced(num_layers=max(args.stages, args.layers),
+                              d_model=args.d_model)
     rng = np.random.default_rng(args.seed)
     caps = [args.capacity] * (args.stages * args.relays_per_stage)
     net = geo_distributed_network(

@@ -2,8 +2,8 @@
 embeddings.
 
 Port of ``repro.models.layers`` (dense parts).  Parameters are dicts of
-tensors (``nn.ParameterDict`` inside the model); the apply functions take
-them and plain tensors.  Causal self-attention goes through
+tensors (``transformer.ParamTree`` inside the model); the apply functions
+take them and plain tensors.  Causal self-attention goes through
 ``kernels.ops.flash_attention``: the hand-written kernel on CUDA, its
 plain version on the CPU; the training stages pass ``use_kernel=False``
 and take ``_online_attention``, which autograd differentiates.

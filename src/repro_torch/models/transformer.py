@@ -1,10 +1,13 @@
 """Decoder transformer: init, decode caches, prefill and decode.
 
-Port of the dense, ssm and hybrid branches of ``repro.models.transformer``:
+Port of the dense, ssm, hybrid and moe branches of
+``repro.models.transformer``:
 
-* dense  — GQA attention + MLP      [gwtf-llama/gpt-300m, tinyllama]
+* dense  — GQA attention + MLP   [gwtf-llama/gpt-300m, gwtf-llama-7b,
+           tinyllama, qwen1.5, starcoder2, gemma]
 * ssm    — attention-free Mamba2/SSD blocks              [mamba2-130m]
 * hybrid — attention and SSD heads in parallel per layer  [hymba]
+* moe    — attention + routed experts (+ shared)  [granite-moe, qwen2-moe]
 
 Where the JAX package stacks its blocks along a leading axis and scans
 over them, the port holds one ``Block`` module per layer in an
@@ -27,21 +30,40 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-ARCH_TYPES = ("dense", "ssm", "hybrid")
+ARCH_TYPES = ("dense", "ssm", "hybrid", "moe")
+
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors as a module: tensors are parameters, a dict
+    is a sub-tree (``moe``'s ``shared``), each under its JAX name; the
+    layers read it with ``p[name]`` as they read the dict."""
+
+    def __init__(self, tree: Dict[str, Any]):
+        super().__init__()
+        for name, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(name, ParamTree(v))
+            else:
+                self.register_parameter(name, nn.Parameter(v))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
 
 
 class Block(nn.Module):
     """One decoder layer's parameters: ln1, attn, ln2, mlp (dense); ln1,
-    mamba (ssm); ln1, attn, mamba, ln2, mlp (hybrid)."""
+    mamba (ssm); ln1, attn, mamba, ln2, mlp (hybrid); ln1, attn, ln2, moe
+    (moe)."""
 
-    def __init__(self, params: Dict[str, Dict[str, torch.Tensor]]):
+    def __init__(self, params: Dict[str, Dict[str, Any]]):
         super().__init__()
         for name, sub in params.items():
-            self.add_module(name, nn.ParameterDict(sub))
+            self.add_module(name, ParamTree(sub))
 
 
 class Transformer(nn.Module):
@@ -53,13 +75,13 @@ class Transformer(nn.Module):
             raise NotImplementedError(
                 f"repro_torch runs {', '.join(ARCH_TYPES)} models only, not "
                 f"{cfg.arch_type} ({cfg.name}): see ROADMAP.md, Queue 1 "
-                f"item 12, model breadth")
+                f"item 12.3, model breadth")
         if len(params["blocks"]) != cfg.num_layers:
             raise ValueError(f"{len(params['blocks'])} blocks for "
                              f"{cfg.num_layers} layers")
         self.cfg = cfg
-        self.embed = nn.ParameterDict(params["embed"])
-        self.final_norm = nn.ParameterDict(params["final_norm"])
+        self.embed = ParamTree(params["embed"])
+        self.final_norm = ParamTree(params["final_norm"])
         self.blocks = nn.ModuleList(Block(bp) for bp in params["blocks"])
 
 
@@ -76,7 +98,10 @@ def _init_block(generator, cfg: ModelConfig, dtype, device):
     if cfg.arch_type == "hybrid":
         p["mamba"] = SSM.init_mamba(generator, cfg, dtype, device)
     p["ln2"] = L.init_norm(cfg, device)
-    p["mlp"] = L.init_mlp(generator, cfg, dtype, device)
+    if cfg.is_moe:
+        p["moe"] = MOE.init_moe(generator, cfg, dtype, device)
+    else:
+        p["mlp"] = L.init_mlp(generator, cfg, dtype, device)
     return p
 
 
@@ -122,12 +147,15 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 # ---------------------------------------------------------------------------
 
 def _apply_block(bp: Block, x, cfg: ModelConfig, *, positions, window, cache,
-                 write_index, kv_valid, use_kernel: bool = True):
+                 write_index, kv_valid, use_kernel: bool = True,
+                 moe_impl: str = "dense"):
     """One decoder layer.  ``cache`` is this layer's slice
     (``{"attn": ..., "ssm": ...}`` as the model has them), written in place.
     ``bp`` is anything with the layer's parameter dicts as attributes (a
     ``Block``, or one layer's view of a stacked stage tree); ``use_kernel``
-    goes to ``apply_attention`` and ``apply_mamba``."""
+    goes to ``apply_attention`` and ``apply_mamba``, ``moe_impl`` to
+    ``apply_moe``, whose auxiliary loss is dropped, as JAX's serving and
+    training stages drop it."""
     h = L.apply_norm(bp.ln1, x, cfg)
     if cfg.arch_type == "ssm":
         out, _ = SSM.apply_mamba(bp.mamba, h, cfg,
@@ -148,11 +176,14 @@ def _apply_block(bp: Block, x, cfg: ModelConfig, *, positions, window, cache,
     else:
         x = x + a_out
     h2 = L.apply_norm(bp.ln2, x, cfg)
+    if cfg.is_moe:
+        return x + MOE.apply_moe(bp.moe, h2, cfg, impl=moe_impl)[0]
     return x + L.apply_mlp(bp.mlp, h2, cfg)
 
 
 def forward_hidden(model: Transformer, cfg: ModelConfig, *, tokens,
-                   window=None, cache=None, abs_index=None, write_index=None):
+                   window=None, cache=None, abs_index=None, write_index=None,
+                   moe_impl: str = "dense"):
     """Run the decoder stack.  Returns (hidden, cache).
 
     abs_index:   absolute position of the first input token (decode).
@@ -177,7 +208,8 @@ def forward_hidden(model: Transformer, cfg: ModelConfig, *, tokens,
             lc = {kind: {name: t[i] for name, t in sub.items()}
                   for kind, sub in cache.items()}
         x = _apply_block(bp, x, cfg, positions=positions, window=window,
-                         cache=lc, write_index=write_index, kv_valid=kv_valid)
+                         cache=lc, write_index=write_index, kv_valid=kv_valid,
+                         moe_impl=moe_impl)
     return L.apply_norm(model.final_norm, x, cfg), cache
 
 
@@ -186,18 +218,20 @@ def forward_hidden(model: Transformer, cfg: ModelConfig, *, tokens,
 # ---------------------------------------------------------------------------
 
 @torch.inference_mode()
-def prefill(model: Transformer, cfg: ModelConfig, *, tokens, cache):
+def prefill(model: Transformer, cfg: ModelConfig, *, tokens, cache,
+            moe_impl: str = "dense"):
     """Fill the cache with a full prompt; returns (last_logits, cache).
 
     Assumes prompt length <= cache length (no ring wrap during prefill)."""
     hidden, cache = forward_hidden(model, cfg, tokens=tokens, cache=cache,
-                                   abs_index=0, write_index=0)
+                                   abs_index=0, write_index=0,
+                                   moe_impl=moe_impl)
     return L.lm_logits(model.embed, hidden[:, -1:], cfg)[:, 0], cache
 
 
 @torch.inference_mode()
 def decode_step(model: Transformer, cfg: ModelConfig, *, tokens, cache,
-                index: int, window=None):
+                index: int, window=None, moe_impl: str = "dense"):
     """One decode step at absolute position ``index``."""
     if "attn" in cache:
         cache_len = cache["attn"]["k"].shape[-2]
@@ -205,5 +239,6 @@ def decode_step(model: Transformer, cfg: ModelConfig, *, tokens, cache,
     else:
         write_index = index
     hidden, cache = forward_hidden(model, cfg, tokens=tokens, cache=cache,
-                                   abs_index=index, write_index=write_index)
+                                   abs_index=index, write_index=write_index,
+                                   moe_impl=moe_impl)
     return L.lm_logits(model.embed, hidden[:, -1:], cfg)[:, 0], cache

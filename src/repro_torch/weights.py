@@ -2,8 +2,9 @@
 
 ``params_from_jax`` (serving) takes the JAX params as a nested dict of numpy arrays
 (``jax.tree.map(np.asarray, params)``): ``embed/...``, ``final_norm/...``
-and the stacked blocks at ``blocks/<name>/<leaf>`` with a leading layer
-axis.  It unstacks the blocks into the port's ``Transformer``.  bf16,
+and the stacked blocks at ``blocks/<name>/<leaf>`` (and
+``blocks/moe/shared/<leaf>``) with a leading layer axis.  It unstacks the
+blocks into the port's ``Transformer``.  bf16,
 which numpy holds as ``ml_dtypes.bfloat16`` or as its uint16 bits, becomes
 ``torch.bfloat16`` bit for bit.
 
@@ -34,20 +35,30 @@ def _to_tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
+def _paths(tree: Dict[str, Any], prefix: str):
+    """(path, array) of every leaf of a nested dict."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _paths(v, f"{prefix}/{k}")
+        else:
+            yield f"{prefix}/{k}", v
+
+
+def _layer(tree: Dict[str, Any], i: int, dev) -> Dict[str, Any]:
+    """Layer ``i`` of a stacked nested dict, as tensors on ``dev``."""
+    return {k: _layer(v, i, dev) if isinstance(v, dict)
+            else _to_tensor(np.asarray(v)[i], dev) for k, v in tree.items()}
+
+
 def params_from_jax(cfg: ModelConfig, tree: Dict[str, Any],
                     device="cuda") -> Transformer:
     dev = resolve_device(device)
     blocks = tree["blocks"]
-    for name, sub in blocks.items():
-        for leaf, arr in sub.items():
-            if np.shape(arr)[0] != cfg.num_layers:
-                raise ValueError(f"blocks/{name}/{leaf} has shape "
-                                 f"{np.shape(arr)}, want a leading axis of "
-                                 f"{cfg.num_layers} layers")
-    per_layer = [{name: {leaf: _to_tensor(np.asarray(arr)[i], dev)
-                         for leaf, arr in sub.items()}
-                  for name, sub in blocks.items()}
-                 for i in range(cfg.num_layers)]
+    for path, arr in _paths(blocks, "blocks"):
+        if np.shape(arr)[:1] != (cfg.num_layers,):
+            raise ValueError(f"{path} has shape {np.shape(arr)}, want a "
+                             f"leading axis of {cfg.num_layers} layers")
+    per_layer = [_layer(blocks, i, dev) for i in range(cfg.num_layers)]
     params = {"embed": {k: _to_tensor(a, dev) for k, a in tree["embed"].items()},
               "final_norm": {k: _to_tensor(a, dev)
                              for k, a in tree["final_norm"].items()},

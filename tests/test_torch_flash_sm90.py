@@ -106,7 +106,7 @@ def _jax(q, k, v, *, causal, window):
 
 @pytest.mark.parametrize("window", [None, 48])
 @pytest.mark.parametrize("heads", [(2, 2), (6, 2)], ids=["mha", "gqa"])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("S", [100, 512])
 def test_sm90_rounding_matches_jax_reference(S, D, heads, window):
     H, KH = heads

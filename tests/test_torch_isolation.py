@@ -2,8 +2,9 @@
 
 In a fresh interpreter whose ``sys.meta_path`` refuses ``jax``, ``jaxlib``
 and ``repro`` (matched on the whole first name, so ``repro_torch`` passes),
-every module of ``repro_torch`` and ``chip_smoke.py`` import, and importing
-``chip_smoke.py`` builds, loads and launches no kernel.  The training
+every module of ``repro_torch``, ``chip_smoke.py`` and the port's examples
+(``examples/torch_*.py``) import, and importing ``chip_smoke.py`` builds,
+loads and launches no kernel.  The training
 path's, the flow-routed serving path's and the scenario harness's
 modules, the copies of the numpy flow/sim/scenario/data modules among
 them, are on the list.
@@ -46,15 +47,19 @@ TRAINING = ["checkpoint.store", "core.executor", "core.flow.decentralized",
             # the scenario harness and the remaining numpy copies
             "core.scenarios.harness", "core.scenarios.corpus",
             "core.flow.hierarchy", "core.sim.reference", "core.simulator",
-            "core.join", "core.membership"]
+            "core.join", "core.membership",
+            # the rest of the dense family and the MoE models
+            "models.moe", "configs.qwen1_5_4b", "configs.starcoder2_7b",
+            "configs.gwtf_llama_7b", "configs.gemma_7b",
+            "configs.granite_moe_3b_a800m", "configs.qwen2_moe_a2_7b"]
 missing = [m for m in TRAINING if "repro_torch." + m not in names]
 assert not missing, missing
 for name in names:
     importlib.import_module(name)
 
-spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
-smoke = importlib.util.module_from_spec(spec)
-spec.loader.exec_module(smoke)
+for i, path in enumerate(sys.argv[1:]):
+    spec = importlib.util.spec_from_file_location(f"script_{i}", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 
 from repro_torch.kernels import flash_attention, ops, ssd_scan
 for lib in (flash_attention.LIBRARY, flash_attention.SM90_LIBRARY,
@@ -66,14 +71,18 @@ leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("imported", len(names))
 """
+EXAMPLES = ["torch_quickstart.py", "torch_decentralized_train.py",
+            "torch_serve_decode.py", "torch_scenario_tour.py",
+            "torch_churn_recovery.py"]
 
 
 def test_port_imports_nothing_of_jax():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", CHECK,
-                           str(ROOT / "chip_smoke.py")],
+                           str(ROOT / "chip_smoke.py"),
+                           *(str(ROOT / "examples" / e) for e in EXAMPLES)],
                           capture_output=True, text=True, env=env, cwd=ROOT,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split()[-1])
-    assert n >= 54, proc.stdout
+    assert n >= 61, proc.stdout

@@ -56,7 +56,7 @@ def _port(q, k, v, dtype, **kw):
 
 
 @pytest.mark.parametrize("S", [128, 256])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_matches_jax(S, D, dtype):
     q, k, v = _inputs(S + D, 1, S, 2, 2, D)

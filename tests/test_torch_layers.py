@@ -70,7 +70,7 @@ def test_port_configs_equal_jax_configs():
 
 def test_unported_arch_names_its_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("granite-moe-3b-a800m")
+        get_config("musicgen-medium")
 
 
 @pytest.mark.parametrize("arch", ARCHS[:2])

@@ -6,7 +6,9 @@ router, the fault and routing layers and the data pipeline it trains with
 are copies under ``src/repro_torch/``.  Two guards hold them equal:
 
 * each copy matches its original line for line once the original's
-  ``repro.`` imports are rewritten to ``repro_torch.``; the port's text
+  ``repro.`` imports are rewritten to ``repro_torch.`` (and, for
+  ``examples/torch_churn_recovery.py``, the usage lines name the copy's
+  own path); the port's text
   cites no numbered change of the reference's history, so the lines named
   in ``CITED`` (two comments of ``core/scenarios/spec.py``, one of
   ``core/scenarios/corpus.py``) must differ from the original in such a
@@ -71,6 +73,17 @@ def test_copy_matches_original(path):
             assert CITATION.search(b), f"{path}:{n} cites no change"
             b = CITATION.sub("", b)
         assert a == b, f"{path}:{n} drifted from the original"
+
+
+def test_example_copy_matches_original():
+    """``examples/torch_churn_recovery.py``, numpy only, through the port's
+    simulator copies."""
+    examples = SRC.parent / "examples"
+    original = [IMPORT.sub(r"\1\2 repro_torch.", line).replace(
+        "examples/churn_recovery.py", "examples/torch_churn_recovery.py")
+        for line in (examples / "churn_recovery.py").read_text().splitlines()]
+    copy = (examples / "torch_churn_recovery.py").read_text().splitlines()
+    assert copy == original
 
 
 def _nets(seed, stages=3, relays=4, data_nodes=2):
