@@ -10,8 +10,8 @@ stops with a non-zero exit at the first phase that fails:
 1. device: the card's name and power limit, torch and CUDA versions, each
    kernel's build time and ptxas register and spill lines;
 2. the flash-attention kernel against its plain PyTorch version on the
-   card, at the serving shapes of phase 4's ten models (head_dim 64, 128
-   and, for ``gemma-7b``, 256), the cohorts of 1, 3 and 4 rows that
+   card, at the serving shapes of phase 4's twelve models (head_dim 64,
+   128 and, for ``gemma-7b``, 256), the cohorts of 1, 3 and 4 rows that
    phase 7 prefills in bf16 and phase 8b in f32, and at f32, ragged, GQA,
    windowed, non-causal, S = 8 and D = 256 shapes, each with the body it ran
    (bf16 on the tensor cores, ``flash_attention_sm90.cu``; f32 on the CUDA cores,
@@ -36,21 +36,26 @@ stops with a non-zero exit at the first phase that fails:
    flash;
 4. ``gwtf-llama-300m``, ``tinyllama-1.1b``, ``mamba2-130m``,
    ``hymba-1.5b``, ``qwen1.5-4b``, ``starcoder2-7b``, ``gwtf-llama-7b``,
-   ``gemma-7b`` (head_dim 256), ``granite-moe-3b-a800m`` and
-   ``qwen2-moe-a2.7b`` (dense experts, as JAX serves) served at full width
-   (bf16 params, f32 cache, batch 8, prompt 512, 32 greedy tokens) through
-   ``repro_torch.launch.serve.generate``, one model on the card at a time,
-   each kernel's launches counted over exactly each serve (the main path)
-   and held to one per attention or SSM layer of the prefill, every flash
-   launch on the bf16 tensor-core body, then where the
-   time goes: wall time, device busy time, the top kernels and the port's
-   own kernels (each with its share of the busy time) of one prefill and
-   of 8 decode steps, from ``torch.profiler`` (the MoE models' with the
-   device's activity only);
+   ``gemma-7b`` (head_dim 256), ``granite-moe-3b-a800m``,
+   ``qwen2-moe-a2.7b`` (dense experts, as JAX serves), ``musicgen-medium``
+   (from stub frame embeddings) and ``llama-3.2-vision-90b`` (stub patch
+   embeddings at every step; cut in depth to ``SERVE_LAYERS``) served at
+   full width (bf16 params, f32 cache, batch 8, prompt 512, 32 greedy
+   tokens) through ``repro_torch.launch.serve.generate``, one model on the
+   card at a time, each kernel's launches counted over exactly each serve
+   (the main path) and held to one per self-attention or SSM layer of the
+   prefill (none from cross-attention), every flash launch on the bf16
+   tensor-core body, then where the time goes: wall time, device busy
+   time, the top kernels and the port's own kernels (each with its share
+   of the busy time) of one prefill and of 8 decode steps, from
+   ``torch.profiler`` (the MoE models' with the device's activity only),
+   and for the VLM the share of the decode's busy time that the vision
+   projection and the cross K/V, recomputed at every step, take;
 5. the port on the GPU against the port on the CPU, reduced f32 models of
-   every served config and a ``gemma-7b`` variant that keeps head_dim 256,
-   on the same weights: logits within 1e-3, greedy streams equal, one
-   launch per layer on the f32 body;
+   every served config, a ``gemma-7b`` variant that keeps head_dim 256 and
+   a VLM of two superblocks with its gates set nonzero, on the same
+   weights and stub inputs: logits within 1e-3, greedy streams equal, one
+   launch per self-attention layer on the f32 body;
 6. training, the port's second main path: ``gwtf-llama-300m`` at full
    width (16 layers, bf16 params) through ``repro_torch.launch.train``'s
    ``build_gwtf`` and ``train_iteration``, 4 stages x 3 relays of capacity
@@ -115,7 +120,15 @@ stops with a non-zero exit at the first phase that fails:
    report on both devices (flows, counters, plans, token ids), its numbers
    within ``EXAMPLE_RTOL``; ``torch_serve_decode``'s flash launches on
    cuda held to one per layer of its prefill;
-10. a JSON line of the kernels, then the card, then the result line.
+10. single-program training, the port's fifth main path: ``launch.train
+    --mode spmd`` (``SPMD_ARGS``) trains ``gwtf-llama-300m`` at full width
+    through ``build_spmd`` and ``spmd_step``, each step's loss (finite),
+    ms and tokens/s, the last three steps as ``profile_run``'s (one under
+    ``torch.profiler``), peak memory, no kernel launched; 10b. reduced f32
+    VLM (with vision, nonzero gates), audio (frame embeddings) and MoE
+    models through ``make_train_step`` on cuda against the cpu, each
+    step's loss within ``TRAIN_LOSS_RTOL``;
+11. a JSON line of the kernels, then the card, then the result line.
 
 It needs no network and exits non-zero, printing no result, without a
 GPU or outside a checkout of the repository.
@@ -150,6 +163,7 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.flow.graph import geo_distributed_network  # noqa: E402
 from repro_torch.core.runtime.serving import (ServeTrainer,  # noqa: E402
+                                              serving_aux_inputs,
                                               serving_inputs)
 from repro_torch.core.runtime import cache as train_cache  # noqa: E402
 from repro_torch.core.runtime import serving  # noqa: E402
@@ -168,10 +182,11 @@ from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.kernels.ref import ssd_reference  # noqa: E402
 from repro_torch.kernels.timing import (card_line, device_ms,  # noqa: E402
                                         median_ms, show)
-from repro_torch.launch import train  # noqa: E402
+from repro_torch.launch import steps, train  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models.transformer import (decode_step, init_cache,  # noqa: E402
-                                            prefill)
+                                            is_vlm, prefill, superblocks)
+from repro_torch.optim.adamw import AdamW  # noqa: E402
 from repro_torch.tree import leaves  # noqa: E402
 
 # NVIDIA H100 SXM data sheet, dense: HBM rate and peak rates by input type
@@ -224,6 +239,11 @@ KERNEL_CASES = [
     ("f32 S=256 D=256", (2, 256, 8, 8, 256), torch.float32, True, None, 2e-4),
     ("bf16 D=256 GQA 8/2 window 32 ragged S=200", (2, 200, 8, 2, 256),
      torch.bfloat16, True, 32, 2e-2),
+    # the self-attention of the audio and VLM prefills that phase 4 adds
+    ("serve musicgen-medium", (8, 512, 24, 24, 64), torch.bfloat16, True, None,
+     2e-2),
+    ("serve llama-3.2-vision-90b GQA 64/8", (8, 512, 64, 8, 128), torch.bfloat16,
+     True, None, 2e-2),
 ]
 # name, (B, S, H, P, N), dtype, initial state ("zero" as the serving
 # cache passes it, "none", or "random"), packed (x, B and C strided views
@@ -264,14 +284,24 @@ PROFILE_ALL = (ProfilerActivity.CPU, ProfilerActivity.CUDA)
 # kernel once per SSM layer; decode launches neither
 SERVE_ARCHS = ["gwtf-llama-300m", "tinyllama-1.1b", "mamba2-130m", "hymba-1.5b",
                "qwen1.5-4b", "starcoder2-7b", "gwtf-llama-7b", "gemma-7b",
-               "granite-moe-3b-a800m", "qwen2-moe-a2.7b"]
+               "granite-moe-3b-a800m", "qwen2-moe-a2.7b", "musicgen-medium",
+               "llama-3.2-vision-90b"]
+# served at full width but cut in depth: all 100 layers of the VLM (about
+# 90 B params, 180 GB in bf16) fit no one card; 10 are 2 superblocks of one
+# cross and 4 self layers (about 10.7 B params, 21.4 GB)
+SERVE_LAYERS = {"llama-3.2-vision-90b": 10}
 # phase 5: every served family reduced, f32, and a gemma-7b variant that
 # keeps head_dim 256 (2 heads of 256 at d_model 512): the f32 D = 256 body
 # inside a model
 GPU_VS_CPU_ARCHS = ["gwtf-gpt-300m", "gwtf-llama-300m", "mamba2-130m",
                     "hymba-1.5b", "qwen1.5-4b", "starcoder2-7b",
                     "gwtf-llama-7b", "gemma-7b", "granite-moe-3b-a800m",
-                    "qwen2-moe-a2.7b"]
+                    "qwen2-moe-a2.7b", "musicgen-medium"]
+# the reduced VLM of phases 5 and 10b: two superblocks of (cross, self), each
+# cross block's (gate_attn, gate_mlp) set off their initial 0, where tanh(0)
+# = 0 would hide its cross-attention
+VLM = "llama-3.2-vision-90b"
+VLM_GATES = ((0.7, -0.4), (-0.3, 0.55))
 # the training phase: launch.train's flags at full width, then the churn
 # of the last three iterations
 TRAIN_ARGS = ["--arch", "gwtf-llama-300m", "--mode", "gwtf", "--stages", "4",
@@ -352,6 +382,13 @@ EXAMPLES = [("torch_quickstart", [], 0),
 # loosest
 EXAMPLE_RTOL = max(TRAIN_LOSS_RTOL)
 NUMBER = re.compile(r"(\d+\.\d+)")
+# phase 10: --mode spmd at full width, launch.train's flags; 10b: a reduced
+# VLM (with vision), audio (frame embeddings) and MoE model, TRAIN_LOSS_RTOL's
+# steps on cuda against the cpu
+SPMD_ARGS = ["--arch", "gwtf-llama-300m", "--mode", "spmd", "--batch", "4",
+             "--seq-len", "512", "--steps", "5", "--lr", "1e-3", "--seed", "0",
+             "--device", "cuda"]
+SPMD_KINDS = (VLM, "musicgen-medium", "qwen2-moe-a2.7b")
 
 
 def attended_pairs(S: int, causal: bool, window) -> int:
@@ -582,35 +619,56 @@ def read_launches():
             "ssd_scan": ops.ssd_scan.launches}
 
 
+def prefill_launches(cfg) -> dict:
+    """Each kernel's launches in one prefill: flash once per self-attention
+    layer (a VLM's cross layers attend through the plain path), the SSD
+    scan once per SSM layer; decode launches neither."""
+    nb, k = superblocks(cfg) if is_vlm(cfg) else (cfg.num_layers, 2)
+    return {"flash_attention": nb * (k - 1) if cfg.has_attention else 0,
+            "ssd_scan": cfg.num_layers if cfg.has_ssm else 0}
+
+
 def run_serve(arch: str):
-    """Serve ``arch`` at full width as the main path; returns each kernel's
-    launches counted over exactly this serve."""
+    """Serve ``arch`` at full width (cut in depth to ``SERVE_LAYERS``) as
+    the main path; returns each kernel's launches counted over exactly this
+    serve."""
     t_start = time.perf_counter()
-    cfg = get_config(arch)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=SERVE_LAYERS.get(arch,
+                                                               full.num_layers))
     experts = (f", {cfg.num_experts} experts of d_ff {cfg.d_ff}, top "
                f"{cfg.num_experts_per_tok}, {cfg.num_shared_experts} shared, "
                f"moe_impl dense" if cfg.is_moe else "")
-    print(f"== 4. serve {cfg.name} full width, {cfg.num_layers} layers, "
+    cut = (f" (cut in depth from {full.num_layers}: {superblocks(cfg)[0]} "
+           f"superblocks of 1 cross and {cfg.cross_attn_every - 1} self layers, "
+           f"{cfg.num_image_tokens} image tokens of {cfg.vision_dim})"
+           if cfg.num_layers != full.num_layers else "")
+    stub = (" from stub frame embeddings" if cfg.audio_frontend else "")
+    print(f"== 4. serve {cfg.name} full width, {cfg.num_layers} layers{cut}, "
           f"d_model {cfg.d_model}, H/KH {cfg.num_heads}/{cfg.num_kv_heads} of "
           f"{cfg.head_dim}, SSD heads {cfg.ssm_heads} (N {cfg.ssm_state}), "
-          f"vocab {cfg.vocab_size}{experts}, bf16 params, f32 cache")
+          f"vocab {cfg.vocab_size}{experts}{stub}, bf16 params "
+          f"({cfg.param_count() / 1e9:.2f} B), f32 cache")
     model, prompt, g = serving_inputs(cfg, seed=0, batch=SERVE["batch"],
                                       prompt_len=SERVE["prompt_len"],
                                       device="cuda")
+    vision, embeds = serving_aux_inputs(cfg, seed=0, batch=SERVE["batch"],
+                                        prompt_len=SERVE["prompt_len"],
+                                        device="cuda")
+    aux = dict(vision=vision, embeds=embeds)
     # warm-up: one-time set-up (cuBLAS handles, lazy module loads) stays
     # out of the numbers below
     generate(model, cfg, prompt, gen=2, window=None, temperature=0.0,
-             generator=g)
+             generator=g, **aux)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()                      # the main path starts here
     out = generate(model, cfg, prompt, gen=SERVE["gen"], window=None,
-                   temperature=0.0, generator=g)
+                   temperature=0.0, generator=g, **aux)
     launches = read_launches()
     bodies = dict(fa.BODY_LAUNCHES)
     B = SERVE["batch"]
-    want = {"flash_attention": cfg.num_layers if cfg.has_attention else 0,
-            "ssd_scan": cfg.num_layers if cfg.has_ssm else 0}
+    want = prefill_launches(cfg)
     if launches != want:
         raise SystemExit(f"kernel launches {launches} over the serve, want "
                          f"{want}")
@@ -629,7 +687,7 @@ def run_serve(arch: str):
           f"launches {launches}, flash bodies {bodies}")
     print("sample:", out.tokens[0, :16].tolist())
     print("where the time goes (torch.profiler):")
-    profile_serve(cfg, model, prompt)
+    profile_serve(cfg, model, prompt, **aux)
     print(f"{cfg.name}: drawn, served and profiled in "
           f"{time.perf_counter() - t_start:.1f} s")
     return launches
@@ -646,15 +704,17 @@ def profile_run(name: str, label: str, fn, activities=PROFILE_ALL):
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
-    profiled(name, label, fn, (time.perf_counter() - t0) * 1e3, activities)
+    return profiled(name, label, fn, (time.perf_counter() - t0) * 1e3,
+                    activities)
 
 
 def profiled(name: str, label: str, fn, wall=None, activities=PROFILE_ALL):
     """Run ``fn`` once under ``torch.profiler``; print its profiled wall
     time (and ``wall``, the unprofiled time of the same work, if known)
     against the device busy time, and the kernels that take the device's
-    time.  Leaving out the CPU's activity leaves out the host's operator
-    events, which cost the profiler minutes over ~10^5 launches."""
+    time; returns the busy ms.  Leaving out the CPU's activity leaves out
+    the host's operator events, which cost the profiler minutes over ~10^5
+    launches."""
     with profile(activities=list(activities)) as prof:
         t0 = time.perf_counter()
         fn()
@@ -674,31 +734,57 @@ def profiled(name: str, label: str, fn, wall=None, activities=PROFILE_ALL):
         if rank < 6 or any(k in e.key for k in PORT_KERNELS):
             print(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} "
                   f"({e.self_device_time_total / 1e3 / busy:.1%}) {e.key[:90]}")
+    return busy
 
 
-def profile_serve(cfg, model, prompt, steps: int = 8):
+def profile_serve(cfg, model, prompt, steps: int = 8, vision=None,
+                  embeds=None):
     """Wall time against device busy time for one prefill and ``steps``
     greedy decode steps, and the kernels that take the device's time.  An
     MoE model's dense experts launch ~10^4 kernels a decode step: its
     trace takes the device's activity only (the host's operator events
-    would cost the profiler minutes)."""
+    would cost the profiler minutes).  A VLM's decode recomputes the
+    vision projection and each cross layer's K/V at every step: their
+    device time, timed alone on the same inputs, as a share of the
+    decode's busy time."""
     B, P = prompt.shape
 
     def do_prefill():
         cache = init_cache(cfg, B, P + steps, dtype=torch.float32,
                            device=prompt.device)
-        return prefill(model, cfg, tokens=prompt, cache=cache)
+        if embeds is not None:
+            return prefill(model, cfg, embeds=embeds, cache=cache)
+        return prefill(model, cfg, tokens=prompt, vision=vision, cache=cache)
 
     logits, cache = do_prefill()
     tok = logits.argmax(dim=-1)[:, None]
 
     def do_decode():
         for i in range(steps):
-            decode_step(model, cfg, tokens=tok, cache=cache, index=P + i)
+            decode_step(model, cfg, tokens=tok, vision=vision, cache=cache,
+                        index=P + i)
 
     activities = [ProfilerActivity.CUDA] if cfg.is_moe else PROFILE_ALL
     profile_run(cfg.name, "prefill", do_prefill, activities)
-    profile_run(cfg.name, f"decode x{steps}", do_decode, activities)
+    busy = profile_run(cfg.name, f"decode x{steps}", do_decode, activities)
+    if vision is None:
+        return
+
+    @torch.inference_mode()
+    def recompute():
+        vis = vision.to(torch.bfloat16) @ model.vision_proj["w_proj"]
+        for cp in model.cross_blocks:
+            vis @ cp.xattn["wk"], vis @ cp.xattn["wv"]
+
+    ms = device_ms(recompute, reps=5)
+    flops = 2 * B * cfg.num_image_tokens * cfg.d_model * (
+        cfg.vision_dim + 2 * len(model.cross_blocks) * cfg.kv_dim)
+    print(f"{cfg.name} decode: the vision projection and the cross K/V "
+          f"({flops / 1e12:.2f} TFLOP a step) take device {show(ms)} a step "
+          f"timed alone, "
+          f"{'not taken' if ms is None else f'{steps * ms / busy:.1%}'} of the "
+          f"decode's busy time ({busy:.2f} ms over {steps} steps); bound "
+          f"{flops / PEAK_FLOPS[torch.bfloat16] * 1e3:.4f} ms at the bf16 peak")
 
 
 def head_dim_256(cfg):
@@ -709,23 +795,37 @@ def head_dim_256(cfg):
                                num_kv_heads=2, head_dim=256)
 
 
+def reduced_vlm():
+    """The reduced VLM: 4 layers as two superblocks of (cross, self)."""
+    return dataclasses.replace(get_config(VLM).reduced(num_layers=4),
+                               cross_attn_every=2)
+
+
 def phase_gpu_vs_cpu():
     print("== 5. port on cuda against port on cpu (f32, TF32 off)")
     cfgs = [get_config(a).reduced() for a in GPU_VS_CPU_ARCHS]
-    for cfg in cfgs + [head_dim_256(get_config("gemma-7b"))]:
+    for cfg in cfgs + [head_dim_256(get_config("gemma-7b")), reduced_vlm()]:
         runs = {}
         for device in ("cpu", "cuda"):
             # drawn on the CPU both times, so both runs hold the same weights
             model, prompt, _ = serving_inputs(cfg, seed=0, batch=2,
                                               prompt_len=64, device="cpu")
+            vision, embeds = serving_aux_inputs(cfg, seed=0, batch=2,
+                                                prompt_len=64, device="cpu")
+            with torch.no_grad():
+                for cp, gates in zip(getattr(model, "cross_blocks", []),
+                                     VLM_GATES):
+                    cp.gate_attn.fill_(gates[0])
+                    cp.gate_mlp.fill_(gates[1])
+            to = lambda t: None if t is None else t.to(device)  # noqa: E731
             reset_launches()
             runs[device] = generate(model.to(device), cfg, prompt.to(device),
                                     gen=8, window=None, temperature=0.0,
-                                    generator=None)
+                                    generator=None, vision=to(vision),
+                                    embeds=to(embeds))
         # one prefill: each kernel once per layer that has it, flash on
         # the f32 body
-        want = {"flash_attention": cfg.num_layers if cfg.has_attention else 0,
-                "ssd_scan": cfg.num_layers if cfg.has_ssm else 0}
+        want = prefill_launches(cfg)
         if (read_launches() != want
                 or fa.BODY_LAUNCHES[fa.LIBRARY.name] != want["flash_attention"]):
             raise SystemExit(f"{cfg.name}: launches {read_launches()}, bodies "
@@ -737,9 +837,13 @@ def phase_gpu_vs_cpu():
             raise SystemExit(f"{cfg.name}: greedy streams differ on cuda and "
                              f"cpu")
         err = (gpu.logits.cpu() - cpu.logits).abs().max().item()
-        print(f"{cfg.name} (head_dim {cfg.head_dim}): logits max_abs_err "
-              f"{err:.3g} (tol 1e-3) over {cpu.logits.shape[0]} steps, greedy "
-              f"streams equal, launches {read_launches()} on the f32 body")
+        inputs = ("vision, gates " + ", ".join(map(str, VLM_GATES))
+                  if is_vlm(cfg) else "frame embeddings"
+                  if cfg.audio_frontend else "tokens")
+        print(f"{cfg.name} (head_dim {cfg.head_dim}, {inputs}): logits "
+              f"max_abs_err {err:.3g} (tol 1e-3) over {cpu.logits.shape[0]} "
+              f"steps, greedy streams equal, launches {read_launches()} on the "
+              f"f32 body")
 
 
 def check_counters(r, churn: float):
@@ -1514,6 +1618,120 @@ def phase_examples():
     return launches
 
 
+def phase_spmd():
+    """``--mode spmd`` at full width as the main path, through
+    ``launch.train``'s ``build_spmd`` and ``spmd_step``; returns each
+    kernel's launches over the run (0: training attends through the plain,
+    differentiable path)."""
+    args = train.parser().parse_args(SPMD_ARGS)
+    device = torch.device(args.device)
+    before = torch.cuda.memory_allocated()    # what earlier phases still hold
+    t0 = time.perf_counter()
+    cfg, params, opt_state, train_step, shard = train.build_spmd(args)
+    torch.cuda.synchronize()
+    print(f"== 10. train {cfg.name} full width through --mode spmd: "
+          f"{cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} "
+          f"heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.param_dtype} params ({cfg.param_count() / 1e6:.0f} M), remat "
+          f"{cfg.remat}; batch {args.batch} x {args.seq_len} tokens, lr "
+          f"{args.lr}, {args.steps} steps; weights drawn on the host and "
+          f"moved in {time.perf_counter() - t0:.1f}s")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()                      # the main path starts here
+    state = dict(params=params, opt_state=opt_state, step=0)
+    del params, opt_state                 # the state holds the only references
+    losses = []
+
+    def step():
+        state["params"], state["opt_state"], loss, secs, tokens = train.spmd_step(
+            train_step, state["params"], state["opt_state"], shard, device)
+        if not math.isfinite(loss):
+            raise SystemExit(f"step {state['step']}: non-finite loss {loss}")
+        losses.append(loss)
+        print(f"step {state['step']}: loss {loss:.4f}, {secs * 1e3:.1f} ms, "
+              f"{tokens / secs:.0f} tok/s")
+        state["step"] += 1
+
+    # steps 0-1, then profile_run's three: unprofiled, timed, profiled
+    for _ in range(args.steps - 3):
+        step()
+    print("where the time goes (torch.profiler), the last three steps:")
+    profile_run(cfg.name, "spmd step", step)
+    launches = read_launches()
+    if any(launches.values()) or any(fa.BODY_LAUNCHES.values()):
+        raise SystemExit(f"--mode spmd launched kernels {launches}: its "
+                         f"attention must be the differentiable plain path")
+    gib = lambda n: f"{(n - before) / 2**30:.2f} GiB"  # noqa: E731
+    print(f"peak memory {gib(torch.cuda.max_memory_allocated())} above the "
+          f"{before / 2**30:.2f} GiB earlier phases held, launches {launches}; "
+          f"losses {[round(x, 4) for x in losses]}, all finite (at lr 1e-3 "
+          f"with no warmup the full-width loss may rise first)")
+    # where the peak is reached: the forward and backward, then AdamW's
+    # update, each alone on one more batch
+    b = shard.next_batch()
+    batch = {k: torch.from_numpy(b[k]).to(device) for k in ("tokens", "labels")}
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, grads = steps.loss_and_grads(state["params"], batch, cfg)
+    fwd_bwd = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    AdamW(lr=args.lr).update(grads, state["opt_state"], state["params"])
+    update = torch.cuda.max_memory_allocated()
+    print(f"peak memory split, above what earlier phases held: {gib(held)} "
+          f"held between steps (params, AdamW moments), forward and backward "
+          f"peak {gib(fwd_bwd)}, AdamW update peak {gib(update)}")
+    return launches
+
+
+def spmd_batch(cfg, seed: int, device):
+    """A reduced batch of 2 x 64 from ``seed``: labels, tokens (frame
+    embeddings for an audio model) and, for a VLM, patch embeddings."""
+    rng = np.random.default_rng(seed)
+    b = {"labels": rng.integers(0, cfg.vocab_size, (2, 64))}
+    if cfg.audio_frontend:
+        b["embeds"] = rng.standard_normal((2, 64, cfg.d_model), np.float32)
+    else:
+        b["tokens"] = rng.integers(0, cfg.vocab_size, (2, 64))
+    if is_vlm(cfg):
+        b["vision"] = rng.standard_normal(
+            (2, cfg.num_image_tokens, cfg.vision_dim), np.float32)
+    return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+
+def phase_spmd_vs_cpu():
+    print("== 10b. --mode spmd steps, reduced f32: cuda against cpu")
+    for arch in SPMD_KINDS:
+        cfg = (reduced_vlm() if arch == VLM
+               else get_config(arch).reduced(max_experts=8))
+        runs = {}
+        for device in ("cpu", "cuda"):
+            params = train.spmd_params(cfg, 0, device)
+            if is_vlm(cfg):
+                for i, name in enumerate(("gate_attn", "gate_mlp")):
+                    params["cross_blocks"][name] = torch.tensor(
+                        [g[i] for g in VLM_GATES], device=device)
+            opt = AdamW(lr=1e-3)
+            opt_state, train_step = opt.init(params), steps.make_train_step(
+                cfg, opt)
+            reset_launches()
+            losses = []
+            for i in range(len(TRAIN_LOSS_RTOL)):
+                params, opt_state, loss = train_step(
+                    params, opt_state, spmd_batch(cfg, i, device))
+                losses.append(float(loss))
+            if any(read_launches().values()):
+                raise SystemExit(f"{cfg.name}: training launched kernels "
+                                 f"{read_launches()}")
+            runs[device] = losses
+        rel = [abs(g - c) / abs(c) for g, c in zip(runs["cuda"], runs["cpu"])]
+        if any(r > tol for r, tol in zip(rel, TRAIN_LOSS_RTOL)):
+            raise SystemExit(f"{cfg.name}: losses cpu {runs['cpu']}, cuda "
+                             f"{runs['cuda']}, tol {TRAIN_LOSS_RTOL}")
+        print(f"{cfg.name}: losses cpu {[f'{x:.6f}' for x in runs['cpu']]}, "
+              f"cuda {[f'{x:.6f}' for x in runs['cuda']]} (rel "
+              f"{', '.join(f'{r:.3g}' for r in rel)}; tol {TRAIN_LOSS_RTOL})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--train-identities", action="store_true",
@@ -1585,6 +1803,14 @@ def main(argv=None) -> int:
     for name, n in phase_examples().items():
         launches[name] += n
     took("9")
+
+    # --mode spmd: a main path counted from 0; it launches neither kernel
+    torch.cuda.empty_cache()
+    for name, n in phase_spmd().items():
+        launches[name] += n
+    torch.cuda.empty_cache()
+    phase_spmd_vs_cpu()
+    took("10-10b")
 
     kernels = [
         # the main path's body (bf16) is the source; f32 runs the other

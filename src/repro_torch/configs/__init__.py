@@ -1,9 +1,8 @@
 """Architecture config registry of the PyTorch port.
 
-The same ids and aliases as ``repro.configs``.  Only the configurations
-that the port runs today (dense, SSM, hybrid and MoE) have a copy here;
-every other id raises ``NotImplementedError`` naming the ROADMAP item
-that ports it.
+The same ids and aliases as ``repro.configs``, each config module a copy
+of the JAX package's with its import rewritten: all 13 architectures
+(dense, SSM, hybrid, MoE, VLM and audio).
 """
 from __future__ import annotations
 
@@ -13,14 +12,8 @@ from repro_torch.models.config import ModelConfig
 
 PORTED = ["gwtf_llama_300m", "gwtf_gpt_300m", "tinyllama_1_1b", "mamba2_130m",
           "hymba_1_5b", "qwen1_5_4b", "starcoder2_7b", "gwtf_llama_7b",
-          "gemma_7b", "granite_moe_3b_a800m", "qwen2_moe_a2_7b"]
-
-# arch id -> the ROADMAP.md item that brings it to the port
-_NOT_PORTED = {
-    "musicgen_medium": "Queue 1 item 12.3, model breadth (audio front end)",
-    "llama3_2_vision_90b": ("Queue 1 item 12.3, model breadth "
-                            "(VLM cross-attention)"),
-}
+          "gemma_7b", "granite_moe_3b_a800m", "qwen2_moe_a2_7b",
+          "musicgen_medium", "llama3_2_vision_90b"]
 
 _ALIASES = {
     "musicgen-medium": "musicgen_medium",
@@ -41,10 +34,6 @@ _ALIASES = {
 
 def get_config(arch: str) -> ModelConfig:
     mod_name = _ALIASES.get(arch, arch).replace("-", "_").replace(".", "_")
-    if mod_name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch} is not ported to repro_torch yet: see ROADMAP.md, "
-            f"{_NOT_PORTED[mod_name]}")
     if mod_name not in PORTED:
         raise KeyError(f"unknown arch {arch!r}")
     return importlib.import_module(f"repro_torch.configs.{mod_name}").CONFIG

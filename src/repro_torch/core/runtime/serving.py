@@ -1,14 +1,17 @@
 """ServeTrainer: real-compute decode executor over the flow engine's chains.
 
-Port of ``repro.core.runtime.serving`` for the dense, SSM and hybrid
-models.  The trainer embeds its own ``ServingEngine`` (the port's copy of
-``repro.core.sim.engine``), advances it one iteration at a time, and
-executes the schedule it emits with real prefill and decode compute:
+Port of ``repro.core.runtime.serving``.  The trainer embeds its own
+``ServingEngine`` (the port's copy of ``repro.core.sim.engine``),
+advances it one iteration at a time, and executes the schedule it emits
+with real prefill and decode compute:
 batched prefills for admission cohorts, stacked ``decode_step``
 dispatches for sequences at the same token index on the same chain, and
 teacher-forced cache replay for requeued sequences.  Scheduling metrics
 pass through from the engine unchanged, so the schedule equals the JAX
-package's exactly; the executor adds no timing of its own.
+package's exactly; the executor adds no timing of its own.  Like JAX's,
+it feeds tokens only: a VLM serves with its cross layers skipped, an
+audio model from its token embeddings.  ``serving_aux_inputs`` draws the
+stub patch and frame embeddings that ``launch/serve.py`` feeds.
 
 Caches are the port's dict trees (every leaf ``(L, B, ...)``), f32 as in
 the JAX package.  ``prefill`` and ``decode_step`` write the cache they
@@ -47,11 +50,13 @@ from repro_torch.models.transformer import (Transformer, decode_step,
 from repro_torch.tree import flatten, unflatten
 
 
-def _generators(seed: int, device):
-    """Independent generators for params, prompt and sampling, on
-    ``device``, from one seed (``torch.Generator`` cannot reproduce the
-    JAX keys; tests hand both packages the same numpy inputs instead)."""
-    states = np.random.SeedSequence(seed).generate_state(3, dtype=np.uint64)
+def _generators(seed: int, device, n: int = 3):
+    """Independent generators for params, prompt, sampling and (the
+    fourth) the auxiliary inputs, on ``device``, from one seed.  The first
+    three do not depend on ``n``: ``generate_state(4)`` begins with
+    ``generate_state(3)``.  (``torch.Generator`` cannot reproduce the JAX
+    keys; tests hand both packages the same numpy inputs instead.)"""
+    states = np.random.SeedSequence(seed).generate_state(n, dtype=np.uint64)
     return tuple(torch.Generator(device=device).manual_seed(int(s))
                  for s in states)
 
@@ -65,6 +70,24 @@ def serving_inputs(cfg: ModelConfig, *, seed: int, batch: int,
     prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                            generator=g_prompt, device=dev)
     return model, prompt, g_sample
+
+
+def serving_aux_inputs(cfg: ModelConfig, *, seed: int, batch: int,
+                       prompt_len: int, device="cuda"):
+    """Seeded ``(vision, embeds)`` stub inputs on ``device``, each None
+    where the model takes none: a VLM's patch embeddings (batch,
+    num_image_tokens, vision_dim), an audio model's frame embeddings
+    (batch, prompt_len, d_model), standard normal f32, as JAX's
+    ``serving_inputs`` draws them from its auxiliary key."""
+    dev = resolve_device(device)
+    g_aux = _generators(seed, dev, 4)[3]
+    vision = (torch.randn((batch, cfg.num_image_tokens, cfg.vision_dim),
+                          generator=g_aux, device=dev)
+              if cfg.arch_type == "vlm" else None)
+    embeds = (torch.randn((batch, prompt_len, cfg.d_model), generator=g_aux,
+                          device=dev)
+              if cfg.audio_frontend else None)
+    return vision, embeds
 
 
 class _Seq:

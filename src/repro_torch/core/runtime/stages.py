@@ -35,14 +35,14 @@ recovery tests, as in JAX.
 """
 from __future__ import annotations
 
-from types import SimpleNamespace
 from typing import Any, Dict, List, Tuple
 
 import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import DTYPES, _apply_block, _init_block
+from repro_torch.models.transformer import (DTYPES, _apply_block, _init_block,
+                                            unstack_blocks)
 from repro_torch.tree import flatten, tree_map, unflatten
 
 
@@ -74,27 +74,15 @@ def init_stage_params(cfg: ModelConfig, stage: int, num_stages: int,
     return tree_map(lambda *ts: torch.stack(ts), *blocks)
 
 
-def _block_views(stage_params) -> List[SimpleNamespace]:
-    """One view per layer of a stacked stage tree, with the layer's
-    parameter dicts (nested for ``moe``'s ``shared``) as attributes (what
-    ``_apply_block`` reads).  ``unbind`` keeps the views differentiable:
-    the gradients of all layers land in the stacked leaf through one
-    ``stack``."""
-    flat, spec = flatten(stage_params)
-    per_leaf = [torch.unbind(t, 0) for t in flat]
-    n = len(per_leaf[0]) if per_leaf else 0
-    return [SimpleNamespace(**unflatten(spec, [u[i] for u in per_leaf]))
-            for i in range(n)]
-
-
 def stage_forward(stage_params, x, cfg: ModelConfig):
-    """The stage's blocks in order; an MoE block runs the dense experts and
-    drops its auxiliary loss, as the JAX stage does."""
+    """The stage's blocks in order (``unstack_blocks``' per-layer views);
+    an MoE block runs the dense experts and drops its auxiliary loss, as
+    the JAX stage does."""
     positions = torch.arange(x.shape[1], device=x.device)
-    for bp in _block_views(stage_params):
-        x = _apply_block(bp, x, cfg, positions=positions, window=None,
-                         cache=None, write_index=None, kv_valid=None,
-                         use_kernel=False, moe_impl="dense")
+    for bp in unstack_blocks(stage_params):
+        x, _ = _apply_block(bp, x, cfg, positions=positions, window=None,
+                            cache=None, write_index=None, kv_valid=None,
+                            use_kernel=False, moe_impl="dense")
     return x
 
 
@@ -176,11 +164,11 @@ def _backward_residuals(resid: Residuals, g) -> Tuple[Any, torch.Tensor]:
         # a stage with no blocks uses none of its (empty) leaves
         grads = torch.autograd.grad(resid.out, resid.params + [resid.x], g,
                                     retain_graph=True, allow_unused=True)
-    return (unflatten(resid.spec, _with_zeros(resid.params, grads[:-1])),
+    return (unflatten(resid.spec, with_zeros(resid.params, grads[:-1])),
             grads[-1])
 
 
-def _with_zeros(flat, grads) -> List[torch.Tensor]:
+def with_zeros(flat, grads) -> List[torch.Tensor]:
     """Grads of ``flat``'s leaves, zeros where autograd found no use (as
     ``jax.vjp`` gives)."""
     return [torch.zeros_like(p) if d is None else d
@@ -216,7 +204,7 @@ class StageCompute:
         with torch.enable_grad():
             out = embed_fn(unflatten(spec, leaves_g), tokens)
             grads = torch.autograd.grad(out, leaves_g, g, allow_unused=True)
-        return unflatten(spec, _with_zeros(flat, grads))
+        return unflatten(spec, with_zeros(flat, grads))
 
     def forward(self, stage: int, params, x):
         """One plain dispatch of stage ``stage`` over a stacked batch
@@ -263,7 +251,7 @@ class StageCompute:
                                   for i in range(h.shape[0])])
             grads = torch.autograd.grad(losses.sum(), leaves_g + [h],
                                         allow_unused=True)
-        g_head = unflatten(spec, _with_zeros(flat, grads[:-1]))
+        g_head = unflatten(spec, with_zeros(flat, grads[:-1]))
         return losses.detach(), g_head, grads[-1]
 
     # ------------------------------------------------------------------

@@ -5,7 +5,10 @@ The same CLI as ``repro.launch.serve``, plus ``--device``.  On the GPU,
 prefill attention always goes through the hand-written flash-attention
 kernel and prefill's chunked SSD scan through the hand-written SSD kernel
 (there is no ``--use-kernel``).  An SSM model's cache holds no attention
-slots, so ``--long`` changes nothing for ``mamba2-130m``:
+slots, so ``--long`` changes nothing for ``mamba2-130m``.  An audio model
+prefills from stub frame embeddings and a VLM attends to stub patch
+embeddings at every step (``serving.serving_aux_inputs``), as the JAX
+driver feeds them:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gwtf-llama-300m \
       --batch 8 --prompt-len 512 --gen 32
@@ -13,8 +16,12 @@ slots, so ``--long`` changes nothing for ``mamba2-130m``:
       --batch 8 --prompt-len 512 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
       --batch 8 --prompt-len 512 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-medium \
+      --batch 8 --prompt-len 512 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --reduced --batch 4 --prompt-len 32 --gen 32 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch llama-3.2-vision-90b --reduced --device cpu
 """
 from __future__ import annotations
 
@@ -53,12 +60,17 @@ def _sample(logits, temperature: float, generator):
 @torch.inference_mode()
 def generate(model: Transformer, cfg: ModelConfig, prompt: torch.Tensor, *,
              gen: int, window: Optional[int], temperature: float,
-             generator: Optional[torch.Generator]) -> Generation:
-    """Prefill ``prompt`` (B, P), then decode ``gen`` steps.
+             generator: Optional[torch.Generator],
+             vision: Optional[torch.Tensor] = None,
+             embeds: Optional[torch.Tensor] = None) -> Generation:
+    """Prefill ``prompt`` (B, P), or ``embeds`` (B, P, D) in its place,
+    then decode ``gen`` steps; ``vision`` (a VLM's patch embeddings) goes
+    to the prefill and to every step.
 
     With ``window`` the attention cache is a ring buffer of ``window``
-    slots, else it holds ``P + gen``; the SSM state is O(1) either way.  The cache is f32 whatever the params' dtype, as in
-    the JAX driver.  Greedy when ``temperature <= 0``.
+    slots, else it holds ``P + gen``; the SSM state is O(1) either way.
+    The cache is f32 whatever the params' dtype, as in the JAX driver.
+    Greedy when ``temperature <= 0``.
     """
     B, P = prompt.shape
     dev = prompt.device
@@ -66,7 +78,11 @@ def generate(model: Transformer, cfg: ModelConfig, prompt: torch.Tensor, *,
     cache = init_cache(cfg, B, cache_len, dtype=torch.float32, device=dev)
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill(model, cfg, tokens=prompt, cache=cache)
+    if embeds is not None:
+        logits, cache = prefill(model, cfg, embeds=embeds, cache=cache)
+    else:
+        logits, cache = prefill(model, cfg, tokens=prompt, vision=vision,
+                                cache=cache)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
 
@@ -74,8 +90,8 @@ def generate(model: Transformer, cfg: ModelConfig, prompt: torch.Tensor, *,
     toks, all_logits = [tok], [logits.float()]
     t0 = time.perf_counter()
     for i in range(gen):
-        logits, cache = decode_step(model, cfg, tokens=tok, cache=cache,
-                                    index=P + i, window=window)
+        logits, cache = decode_step(model, cfg, tokens=tok, vision=vision,
+                                    cache=cache, index=P + i, window=window)
         tok = _sample(logits, temperature, generator)
         toks.append(tok)
         all_logits.append(logits.float())
@@ -105,7 +121,8 @@ def main(argv=None):
 
     from repro_torch import resolve_device
     from repro_torch.configs import get_config
-    from repro_torch.core.runtime.serving import serving_inputs
+    from repro_torch.core.runtime.serving import (serving_aux_inputs,
+                                                  serving_inputs)
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -116,8 +133,12 @@ def main(argv=None):
     model, prompt, g_sample = serving_inputs(
         cfg, seed=args.seed, batch=args.batch, prompt_len=args.prompt_len,
         device=device)
+    vision, embeds = serving_aux_inputs(
+        cfg, seed=args.seed, batch=args.batch, prompt_len=args.prompt_len,
+        device=device)
     out = generate(model, cfg, prompt, gen=args.gen, window=window,
-                   temperature=args.temperature, generator=g_sample)
+                   temperature=args.temperature, generator=g_sample,
+                   vision=vision, embeds=embeds)
     B = args.batch
     print(f"prefill: bs={B} len={args.prompt_len} ({out.prefill_s:.2f}s)")
     print(f"decoded {args.gen} steps x {B} seqs in {out.decode_s:.2f}s "

@@ -1,18 +1,23 @@
 """Training driver of the PyTorch port, on the GPU unless ``--device cpu``
 is given.
 
-Port of ``repro.launch.train``, with the same flags plus ``--device``.
-``--mode gwtf`` is the paper's decentralized training: a FlowNetwork of
-data/relay nodes, GWTF flow routing, churn, and per-stage replicas via
-:class:`repro_torch.core.executor.DecentralizedTrainer`.  ``--mode spmd``
-(single-program training on a device mesh) is not ported: see
-ROADMAP.md, Queue 1 item 13.  Its flags ``--steps``, ``--log-every`` and
-``--checkpoint`` are refused with the same pointer.
+Port of ``repro.launch.train``, with the same flags plus ``--device``:
+
+* ``--mode spmd`` — single-program training of the whole model on one
+  device: ``launch.steps.make_train_step`` over the JAX package's
+  stacked parameter tree, one data shard, AdamW; ``--checkpoint`` writes
+  that tree through ``checkpoint.store`` in JAX's npz layout.  (JAX runs
+  it over the local device mesh; one card has no mesh.)
+* ``--mode gwtf`` — the paper's decentralized training: a FlowNetwork of
+  data/relay nodes, GWTF flow routing, churn, and per-stage replicas via
+  :class:`repro_torch.core.executor.DecentralizedTrainer`.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gwtf-llama-300m \
       --mode gwtf --stages 4 --iterations 50 --churn 0.1 --seq-len 512
   PYTHONPATH=src python -m repro_torch.launch.train --mode gwtf --reduced \
       --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \
+      --mode spmd --reduced --steps 50 --device cpu
 """
 from __future__ import annotations
 
@@ -23,11 +28,17 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
+from repro_torch.checkpoint import store
 from repro_torch.configs import get_config
 from repro_torch.core.executor import DecentralizedTrainer, IterationResult
 from repro_torch.core.flow.graph import geo_distributed_network
 from repro_torch.data.pipeline import DataConfig, DataNodeShard
+from repro_torch.launch.steps import make_train_step
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import init_params, stack_params
+from repro_torch.optim.adamw import AdamW
+from repro_torch.tree import tree_map
 
 
 def build_gwtf(args, cfg: Optional[ModelConfig] = None
@@ -86,7 +97,66 @@ def run_gwtf(args) -> float:
     return trainer.losses[-1]
 
 
-SPMD_ONLY = "--mode spmd only, which is not ported: refused"
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def spmd_params(cfg: ModelConfig, seed: int, device):
+    """Seeded initial parameters of ``--mode spmd``, in the JAX package's
+    stacked layout: drawn on the CPU from ``seed`` and moved to
+    ``device``, so that every device starts from the same weights."""
+    model = init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    return tree_map(lambda t: t.to(device), stack_params(cfg, model))
+
+
+def build_spmd(args, cfg: Optional[ModelConfig] = None):
+    """``(cfg, params, opt_state, train_step, shard)`` for ``--mode
+    spmd``; ``cfg`` trains that config in place of ``--arch`` (and
+    ``--reduced``)."""
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = cfg.reduced(num_layers=args.layers, d_model=args.d_model)
+    opt = AdamW(lr=args.lr)
+    params = spmd_params(cfg, args.seed, resolve_device(args.device))
+    shard = DataNodeShard(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=args.seq_len, batch_size=args.batch,
+        microbatch_size=args.batch, seed=args.seed), 0, 1)
+    return cfg, params, opt.init(params), make_train_step(cfg, opt), shard
+
+
+def spmd_step(train_step, params, opt_state, shard: DataNodeShard, device):
+    """One step on the shard's next batch: ``(params, opt_state, loss,
+    seconds, tokens)``, the seconds of the step alone (the device
+    synchronized on both sides)."""
+    b = shard.next_batch()
+    batch = {k: torch.from_numpy(b[k]).to(device) for k in ("tokens", "labels")}
+    _sync(device)
+    t0 = time.perf_counter()
+    params, opt_state, loss = train_step(params, opt_state, batch)
+    _sync(device)
+    return params, opt_state, float(loss), time.perf_counter() - t0, batch[
+        "tokens"].numel()
+
+
+def run_spmd(args) -> float:
+    device = resolve_device(args.device)
+    cfg, params, opt_state, train_step, shard = build_spmd(args)
+    for step in range(args.steps):
+        params, opt_state, loss, secs, tokens = spmd_step(
+            train_step, params, opt_state, shard, device)
+        if step % args.log_every == 0:
+            print(f"step {step:4d} loss {loss:.4f} ({secs * 1e3:.1f} ms, "
+                  f"{tokens / secs:.0f} tok/s)")
+    if args.checkpoint:
+        store.save(args.checkpoint, params, step=args.steps)
+        print("checkpoint ->", args.checkpoint)
+    print(f"final loss {loss:.4f}")
+    return loss
+
+
+SPMD_ONLY = "--mode spmd only (--mode gwtf takes --iterations)"
 
 
 def parser() -> argparse.ArgumentParser:
@@ -98,7 +168,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--d-model", type=int, default=256)
     ap.add_argument("--seq-len", type=int, default=128)
     ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--steps", type=int, default=None, help=SPMD_ONLY)
+    ap.add_argument("--steps", type=int, default=20, help=SPMD_ONLY)
     ap.add_argument("--iterations", type=int, default=20)
     ap.add_argument("--stages", type=int, default=4)
     ap.add_argument("--relays-per-stage", type=int, default=3)
@@ -108,7 +178,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--churn", type=float, default=0.0)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--log-every", type=int, default=None, help=SPMD_ONLY)
+    ap.add_argument("--log-every", type=int, default=5, help=SPMD_ONLY)
     ap.add_argument("--checkpoint", default=None, help=SPMD_ONLY)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default; a missing GPU is an error) or cpu")
@@ -118,16 +188,7 @@ def parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = parser().parse_args(argv)
     if args.mode == "spmd":
-        raise SystemExit("repro_torch.launch.train: --mode spmd is not ported "
-                         "yet: see ROADMAP.md, Queue 1 item 13 (launch "
-                         "utilities, last); use --mode gwtf")
-    given = [f"--{k.replace('_', '-')}" for k in ("steps", "log_every",
-                                                  "checkpoint")
-             if getattr(args, k) is not None]
-    if given:
-        raise SystemExit(f"repro_torch.launch.train: {', '.join(given)} "
-                         "belong to --mode spmd, which is not ported yet: "
-                         "see ROADMAP.md, Queue 1 item 13")
+        return run_spmd(args)
     return run_gwtf(args)
 
 

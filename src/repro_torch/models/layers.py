@@ -1,14 +1,16 @@
-"""Core neural layers of the dense decoder: norms, RoPE, MLP, attention,
+"""Core neural layers of the decoder: norms, RoPE, MLP, attention,
 embeddings.
 
-Port of ``repro.models.layers`` (dense parts).  Parameters are dicts of
-tensors (``transformer.ParamTree`` inside the model); the apply functions
-take them and plain tensors.  Causal self-attention goes through
+Port of ``repro.models.layers``.  Parameters are dicts of tensors
+(``transformer.ParamTree`` inside the model); the apply functions take
+them and plain tensors.  Causal self-attention goes through
 ``kernels.ops.flash_attention``: the hand-written kernel on CUDA, its
-plain version on the CPU; the training stages pass ``use_kernel=False``
-and take ``_online_attention``, which autograd differentiates.
-Single-token decode against the KV cache has no kernel and stays plain
-PyTorch.  ``chunked_xent_loss`` is the training loss head.
+plain version on the CPU; training passes ``use_kernel=False`` and takes
+``_online_attention``, which autograd differentiates.  Cross-attention
+(``kv_x``, the VLM's image layers) is non-causal over memory rows of
+another length and takes ``_online_attention`` too, as in the JAX
+package.  Single-token decode against the KV cache has no kernel and
+stays plain PyTorch.  ``chunked_xent_loss`` is the training loss head.
 
 Where JAX computes a product of low-precision operands with
 ``preferred_element_type=f32`` or promotes mixed dtypes, the port casts
@@ -121,12 +123,15 @@ def apply_mlp(p, x, cfg: ModelConfig):
 # Attention
 # ---------------------------------------------------------------------------
 
-def init_attention(generator, cfg: ModelConfig, dtype, device):
+def init_attention(generator, cfg: ModelConfig, dtype, device,
+                   kv_in_dim: Optional[int] = None):
+    """kv_in_dim overrides the K/V input width (cross-attention)."""
     D = cfg.d_model
+    kv_in = kv_in_dim or D
     p = {
         "wq": dense_init(generator, (D, cfg.q_dim), dtype, device),
-        "wk": dense_init(generator, (D, cfg.kv_dim), dtype, device),
-        "wv": dense_init(generator, (D, cfg.kv_dim), dtype, device),
+        "wk": dense_init(generator, (kv_in, cfg.kv_dim), dtype, device),
+        "wv": dense_init(generator, (kv_in, cfg.kv_dim), dtype, device),
         "wo": dense_init(generator, (cfg.q_dim, D), dtype, device),
     }
     if cfg.qkv_bias:
@@ -222,11 +227,14 @@ def _decode_attention(q, ck, cv, kv_valid: int, KH: int, hd: int,
 
 
 def apply_attention(p, x, cfg: ModelConfig, *, positions, causal=True,
-                    window=None, cache=None, write_index=None, kv_valid=None,
-                    use_kernel: bool = True):
-    """Self-attention with optional KV cache.
+                    window=None, kv_x=None, cache=None, write_index=None,
+                    kv_valid=None, use_kernel: bool = True):
+    """Self- or cross-attention with optional KV cache.
 
-    x: (B, S, D).  cache: dict(k=(B, C, kv_dim), v=(B, C, kv_dim)), kv
+    x: (B, S, D).  kv_x: cross-attention memory (B, M, Dv) or None; with
+    it K and V come from ``kv_x``, no RoPE applies and every query attends
+    to all M rows (no cache; ``positions`` is unused).
+    cache: dict(k=(B, C, kv_dim), v=(B, C, kv_dim)), kv
     dims flattened as in the JAX package.  Unlike JAX, the cache is
     updated in place (it is a view into the model's stacked cache) and
     returned, so decoding never copies it.
@@ -248,12 +256,18 @@ def apply_attention(p, x, cfg: ModelConfig, *, positions, causal=True,
     B, S, D = x.shape
     H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    src = x if kv_x is None else kv_x
+    q, k, v = x @ p["wq"], src @ p["wk"], src @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = apply_rope(q.reshape(B, S, H, hd), positions, cfg.rope_theta)
-    k = apply_rope(k.reshape(B, S, KH, hd), positions, cfg.rope_theta)
-    v = v.reshape(B, S, KH, hd)
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, -1, KH, hd)
+    v = v.reshape(B, -1, KH, hd)
+    if kv_x is None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    elif cache is not None:
+        raise ValueError("cross-attention takes no KV cache")
 
     if cache is not None:
         C = cache["k"].shape[1]
@@ -268,10 +282,11 @@ def apply_attention(p, x, cfg: ModelConfig, *, positions, causal=True,
         else:
             # the cache was empty: attend over this step's own K/V
             out = kops.flash_attention(q, k, v, causal=True)
-    elif causal and use_kernel:
+    elif causal and use_kernel and kv_x is None:
         out = kops.flash_attention(q, k, v, causal=True, window=window)
     else:
-        out = _online_attention(q, k, v, 0, causal=causal, window=window)
+        out = _online_attention(q, k, v, 0, causal=causal and kv_x is None,
+                                window=window)
 
     return out.reshape(B, S, cfg.q_dim) @ p["wo"], cache
 

@@ -33,7 +33,8 @@ from test_torch_serve import LOGITS, _jax_generate, _run_both
 
 DENSE = ["qwen1.5-4b", "starcoder2-7b", "gwtf-llama-7b", "gemma-7b"]
 NEW = ["qwen1_5_4b", "starcoder2_7b", "gwtf_llama_7b", "gemma_7b",
-       "granite_moe_3b_a800m", "qwen2_moe_a2_7b"]
+       "granite_moe_3b_a800m", "qwen2_moe_a2_7b", "musicgen_medium",
+       "llama3_2_vision_90b"]
 SRC = Path(__file__).resolve().parents[1] / "src"
 
 
@@ -87,21 +88,15 @@ def test_head_dim_256_variant_matches_jax():
 
 
 def test_get_config_every_arch_id():
-    """Every id of the JAX registry: the 11 ported configs equal JAX's, the
-    two still refused name their ROADMAP item."""
-    refused = []
+    """Every id of the JAX registry: all 13 configs equal JAX's, field for
+    field; none is refused."""
     for arch in ARCH_IDS:
-        try:
-            cfg = get_config(arch)
-        except NotImplementedError as e:
-            assert "ROADMAP.md, Queue 1 item 12.3" in str(e), e
-            refused.append(arch)
-            continue
-        assert dataclasses.asdict(cfg) == dataclasses.asdict(jax_config(arch))
-    assert refused == ["musicgen_medium", "llama3_2_vision_90b"]
-    assert sorted(PORTED) == sorted(set(ARCH_IDS) - set(refused))
+        assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(
+            jax_config(arch))
+    assert sorted(PORTED) == sorted(ARCH_IDS)
     for alias in ("qwen1.5-4b", "gemma-7b", "starcoder2-7b", "gwtf-llama-7b",
-                  "granite-moe-3b-a800m", "qwen2-moe-a2.7b"):
+                  "granite-moe-3b-a800m", "qwen2-moe-a2.7b", "musicgen-medium",
+                  "llama-3.2-vision-90b"):
         assert get_config(alias).name == alias
     with pytest.raises(KeyError):
         get_config("no-such-arch")

@@ -7,7 +7,8 @@ every module of ``repro_torch``, ``chip_smoke.py`` and the port's examples
 loads and launches no kernel.  The training
 path's, the flow-routed serving path's and the scenario harness's
 modules, the copies of the numpy flow/sim/scenario/data modules among
-them, are on the list.
+them, the VLM and audio configs, ``launch/steps.py`` and the frozen
+reference trainer are on the list.
 """
 import os
 import subprocess
@@ -51,7 +52,11 @@ TRAINING = ["checkpoint.store", "core.executor", "core.flow.decentralized",
             # the rest of the dense family and the MoE models
             "models.moe", "configs.qwen1_5_4b", "configs.starcoder2_7b",
             "configs.gwtf_llama_7b", "configs.gemma_7b",
-            "configs.granite_moe_3b_a800m", "configs.qwen2_moe_a2_7b"]
+            "configs.granite_moe_3b_a800m", "configs.qwen2_moe_a2_7b",
+            # the VLM and audio models, single-program training, the
+            # frozen reference trainer
+            "configs.musicgen_medium", "configs.llama3_2_vision_90b",
+            "launch.steps", "core.runtime.reference"]
 missing = [m for m in TRAINING if "repro_torch." + m not in names]
 assert not missing, missing
 for name in names:

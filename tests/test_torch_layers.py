@@ -68,9 +68,9 @@ def test_port_configs_equal_jax_configs():
             jax_config(arch).reduced(num_layers=2, d_model=256))
 
 
-def test_unported_arch_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("musicgen-medium")
+def test_unknown_arch_raises_key_error():
+    with pytest.raises(KeyError, match="no-such-arch"):
+        get_config("no-such-arch")
 
 
 @pytest.mark.parametrize("arch", ARCHS[:2])

@@ -1,6 +1,7 @@
 """The port's training CLI: ``--device cpu`` trains a reduced model with
-falling losses, a missing GPU fails loudly, ``--mode spmd`` and its
-flags point to ROADMAP.md."""
+falling losses in either mode, a missing GPU fails loudly, and the
+``--mode spmd`` flags are accepted in either mode, as JAX's parser
+accepts them."""
 import os
 import subprocess
 import sys
@@ -55,13 +56,27 @@ def test_cuda_without_a_gpu_fails_loudly():
         train.main(["--mode", "gwtf", "--reduced", "--iterations", "1"])
 
 
-def test_spmd_is_not_ported():
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
-        train.main(["--mode", "spmd", "--reduced", "--device", "cpu"])
+def test_spmd_trains_on_the_cpu(capsys):
+    final = train.main(["--mode", "spmd", "--reduced", "--device", "cpu",
+                        "--steps", "3", "--log-every", "1", "--layers", "2",
+                        "--d-model", "64", "--seq-len", "32"])
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("step")]
+    assert len(lines) == 3
+    losses = [float(ln.split("loss ")[1].split()[0]) for ln in lines]
+    assert all(b < a for a, b in zip(losses, losses[1:]))
+    assert final == pytest.approx(losses[-1], abs=1e-4)
+    assert "tok/s" in lines[0] and "ms" in lines[0]
 
 
 @pytest.mark.parametrize("flag", [["--steps", "5"], ["--log-every", "2"],
                                   ["--checkpoint", "ckpt.npz"]])
-def test_spmd_only_flags_are_refused(flag):
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
-        train.main(["--mode", "gwtf", "--reduced", "--device", "cpu"] + flag)
+def test_spmd_flags_are_accepted(flag):
+    """In either mode, as JAX's parser takes them, with JAX's defaults."""
+    for mode in ("gwtf", "spmd"):
+        args = train.parser().parse_args(["--mode", mode] + flag)
+        name = flag[0][2:].replace("-", "_")
+        assert str(getattr(args, name)) == flag[1]
+    defaults = train.parser().parse_args([])
+    assert (defaults.steps, defaults.log_every, defaults.checkpoint) == (
+        20, 5, None)
