@@ -8,19 +8,23 @@ from the checkout's sources (one nvcc per kernel, started together) and
 stops with a non-zero exit at the first phase that fails:
 
 1. device: the card's name and power limit, torch and CUDA versions, each
-   kernel's build time and ptxas register and spill lines;
+   kernel's build time and ptxas register and spill lines, and the TF32
+   ``HMMA`` instructions of each f32 flash instantiation in the built
+   library's SASS (``cuobjdump -sass``; none fails the phase);
 2. the flash-attention kernel against its plain PyTorch version on the
    card, at the serving shapes of phase 4's twelve models (head_dim 64,
    128 and, for ``gemma-7b``, 256), the cohorts of 1, 3 and 4 rows that
    phase 7 prefills in bf16 and phase 8b in f32, and at f32, ragged, GQA,
    windowed, non-causal, S = 8 and D = 256 shapes, each with the body it ran
-   (bf16 on the tensor cores, ``flash_attention_sm90.cu``; f32 on the CUDA cores,
-   ``flash_attention.cu``), the median time of a single call (CUDA
-   events, the host's enqueue inside), the plain version's, the time of
-   ``scaled_dot_product_attention`` (a yardstick the port never calls)
-   and the least time the card could take, then the device time per
+   (bf16 ``wgmma``, ``flash_attention_sm90.cu``; f32 3xTF32 ``mma.sync``,
+   ``flash_attention.cu``; both on the tensor cores), the median time of
+   a single call (CUDA events, the host's enqueue inside), the plain
+   version's, the time of ``scaled_dot_product_attention`` (a yardstick
+   the port never calls) and the least time the card could take (for f32
+   at both the CUDA cores' rate and 3xTF32's), then the device time per
    call of the kernel, the plain version and SDPA (calls queued back to
-   back between CUDA events, the host's enqueue left out);
+   back between CUDA events, the host's enqueue left out); then, untimed,
+   the f32 body over ``F32_SWEEP``'s edges (lengths, windows, GQA);
 3. the SSD scan (two kernels a call, ``ssd_scan.cu``: C Bᵀ per batch
    and chunk, then the scan on the tensor cores in 3xTF32) against its
    plain version (``ssd_chunked``) at ``mamba2-130m``'s and
@@ -177,6 +181,7 @@ from repro_torch.core.sim.metrics import summarize_serving  # noqa: E402
 from repro_torch.core.sim.policies import make_policy  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, DataNodeShard  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels.build import toolkit_program  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.kernels.ref import ssd_reference  # noqa: E402
@@ -239,6 +244,13 @@ KERNEL_CASES = [
     ("f32 S=256 D=256", (2, 256, 8, 8, 256), torch.float32, True, None, 2e-4),
     ("bf16 D=256 GQA 8/2 window 32 ragged S=200", (2, 200, 8, 2, 256),
      torch.bfloat16, True, 32, 2e-2),
+    # the f32 body at a full card (B*H = 128), and ragged with a window
+    # and GQA at D = 128 and 256, through its mma tiles
+    ("f32 B=8 S=512", (8, 512, 16, 16, 64), torch.float32, True, None, 2e-4),
+    ("f32 D=128 GQA 8/2 window 32 ragged S=200", (2, 200, 8, 2, 128),
+     torch.float32, True, 32, 2e-4),
+    ("f32 D=256 GQA 8/2 window 32 ragged S=200", (2, 200, 8, 2, 256),
+     torch.float32, True, 32, 2e-4),
     # the self-attention of the audio and VLM prefills that phase 4 adds
     ("serve musicgen-medium", (8, 512, 24, 24, 64), torch.bfloat16, True, None,
      2e-2),
@@ -272,10 +284,17 @@ SSD_CASES = [
     # the reduced hybrid serve of phase 7b prefills 8 tokens
     ("S=8", (1, 8, 4, 32, 16), torch.float32, "zero", False, 2e-3),
 ]
+# phase 2's sweep of the f32 body's edges, untimed, each held at 2e-4
+# against the plain version: every D, lengths that end inside a warp's 16
+# rows and inside a KV tile, causal or not, windows from 1 key to more than
+# a block, MHA and GQA 4:1
+F32_SWEEP = dict(D=(64, 128, 256), S=(1, 7, 16, 33, 100, 257),
+                 causal=(True, False), window=(None, 1, 5, 32, 100),
+                 heads=((4, 4), (4, 1)))
 SSD_SEQUENTIAL_CASE = ("sequential oracle", (1, 96, 2, 16, 8), torch.float32,
                        "random", False, 2e-3)
 BODY_NAMES = {"flash_attention_sm90": "tensor-core bf16 (flash_attention_sm90.cu)",
-              "flash_attention": "CUDA-core f32 (flash_attention.cu)"}
+              "flash_attention": "tensor-core f32 3xTF32 (flash_attention.cu)"}
 PORT_KERNELS = ("flash_fwd_sm90_kernel", "flash_fwd_kernel", "ssd_cb_kernel",
                 "ssd_scan_tf32_kernel")
 SERVE = dict(batch=8, prompt_len=512, gen=32)
@@ -397,12 +416,16 @@ def attended_pairs(S: int, causal: bool, window) -> int:
                for i in range(S))
 
 
-def bound(shape, dtype, causal, window):
+def bound(shape, dtype, causal, window, peak=None):
+    """Least time for flash attention: q, k, v, o each moved once, and the
+    attended pairs' Q K^T and P V at ``peak`` (the dtype's peak rate by
+    default); returns (ms, "bytes" or "operations")."""
     B, S, H, KH, D = shape
     elem = torch.tensor([], dtype=dtype).element_size()
     nbytes = (2 * B * S * H * D + 2 * B * S * KH * D) * elem   # q, o, k, v
     flops = 4 * D * attended_pairs(S, causal, window) * B * H   # QK^T and PV
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / (peak or PEAK_FLOPS[dtype])
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -455,6 +478,31 @@ def phase_device():
                 kernel = ptxas_kernel(line)
             elif "registers" in line or "spill" in line:
                 print(f"  ptxas: {kernel}: {line.split(':')[-1].strip()}")
+    tf32_hmma = sass_tf32_hmma(fa.LIBRARY)
+    for kernel, (n, opcodes) in tf32_hmma.items():
+        print(f"  sass: {kernel}: {n} TF32 HMMA ({', '.join(sorted(opcodes))})")
+    if not tf32_hmma or not all(n for n, _ in tf32_hmma.values()):
+        raise SystemExit(f"the f32 flash body issues no TF32 HMMA: {tf32_hmma}")
+
+
+def sass_tf32_hmma(lib) -> dict:
+    """{kernel: (TF32 HMMA instructions, the HMMA opcodes seen)} for each
+    flash_fwd_kernel instantiation in the built library's SASS."""
+    sass = subprocess.run([toolkit_program("cuobjdump"), "-sass", str(lib.path())],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    found, kernel = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            kernel = ptxas_kernel(name) if "flash_fwd_kernel" in name else None
+            if kernel:
+                found[kernel] = (0, set())
+        elif kernel and "HMMA" in line:
+            opcode = re.search(r"HMMA\S*", line).group(0)
+            n, opcodes = found[kernel]
+            found[kernel] = (n + ("TF32" in opcode), opcodes | {opcode})
+    return found
 
 
 def ptxas_kernel(line: str) -> str:
@@ -511,6 +559,10 @@ def phase_kernel():
         lib_err = (lib().transpose(1, 2).float() - ref.float()).abs().max().item()
         library_ms = median_ms(lib, reps=20)
         bound_ms, bound_by = bound(shape, dtype, causal, window)
+        bounds = f"bound {bound_ms:.4f} ms by {bound_by}"
+        if dtype == torch.float32:   # the CUDA cores' rate, then 3xTF32's
+            tc_ms, tc_by = bound(shape, dtype, causal, window, PEAK_FLOPS_3XTF32)
+            bounds += f" at f32, {tc_ms:.4f} ms by {tc_by} at 3xTF32"
         dev = dict(device_ms=device_ms(kernel, reps=20),
                    plain_device_ms=device_ms(plain, reps=5),
                    library_device_ms=device_ms(lib, reps=20))
@@ -518,13 +570,43 @@ def phase_kernel():
               f"window={window} body {BODY_NAMES[ran[0]]} max_abs_err={err:.3g} "
               f"(tol {tol}) a single call: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms (err {lib_err:.3g}), "
-              f"bound {bound_ms:.4f} ms by {bound_by}; device: kernel "
+              f"{bounds}; device: kernel "
               f"{show(dev['device_ms'])}, plain {show(dev['plain_device_ms'])}, "
               f"sdpa {show(dev['library_device_ms'])}")
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by,
                              library_ms=library_ms, **dev)
     return results
+
+
+def phase_kernel_sweep():
+    """The f32 body against its plain version over ``F32_SWEEP``, untimed."""
+    worst, n = (0.0, None), 0
+    for D in F32_SWEEP["D"]:
+        for S in F32_SWEEP["S"]:
+            for causal in F32_SWEEP["causal"]:
+                for window in F32_SWEEP["window"]:
+                    for H, KH in F32_SWEEP["heads"]:
+                        g = torch.Generator(device="cuda").manual_seed(n)
+                        q, k, v = (torch.randn(2, S, heads, D, generator=g,
+                                               device="cuda")
+                                   for heads in (H, KH, KH))
+                        before = fa.BODY_LAUNCHES[fa.LIBRARY.name]
+                        out = ops.flash_attention(q, k, v, causal=causal,
+                                                  window=window)
+                        ref = ops.flash_attention_plain(q, k, v, causal=causal,
+                                                        window=window)
+                        case = (2, S, H, KH, D, causal, window)
+                        if fa.BODY_LAUNCHES[fa.LIBRARY.name] != before + 1:
+                            raise SystemExit(f"f32 sweep {case}: not on the f32 body")
+                        torch.testing.assert_close(out, ref, rtol=2e-4, atol=2e-4,
+                                                   msg=lambda m: f"{case}: {m}")
+                        err = (out - ref).abs().max().item()
+                        worst = max(worst, (err, case), key=lambda w: w[0])
+                        n += 1
+    print(f"f32 sweep: {n} cases (B, S, H, KH, D, causal, window) on the f32 "
+          f"body within 2e-4 of the plain version, the largest error "
+          f"{worst[0]:.3g} at {worst[1]}")
 
 
 def ssd_inputs(shape, dtype, h0_kind, packed, seed):
@@ -1761,6 +1843,7 @@ def main(argv=None) -> int:
 
     phase_device()
     flash_timings = phase_kernel()
+    phase_kernel_sweep()
     ssd_timings = phase_ssd_kernel()
     took("1-3")
 

@@ -25,15 +25,21 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def toolkit_program(name: str) -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``): on the
+    PATH, else under torch's ``CUDA_HOME``."""
+    found = shutil.which(name)
     if found:
         return found
     from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
-        return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       "the port's kernels")
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", name)):
+        return os.path.join(CUDA_HOME, "bin", name)
+    raise RuntimeError(f"{name} not found: the CUDA toolkit is needed to build "
+                       f"the port's kernels")
+
+
+def _nvcc() -> str:
+    return toolkit_program("nvcc")
 
 
 class KernelLibrary:

@@ -1,10 +1,10 @@
 """Load and launch the Hopper flash-attention forward kernels.
 
 Two bodies compute the same function, chosen by dtype with no fallback
-between them: bf16 runs the tensor-core kernel (``csrc/flash_attention_sm90.cu``,
-``wgmma`` fed by TMA), f32 the CUDA-core kernel (``csrc/flash_attention.cu``,
-full-f32 products).  Each is built and loaded by ``kernels/build.py`` at
-first use; nothing is built or loaded at import.
+between them, both on the tensor cores: bf16 runs ``csrc/flash_attention_sm90.cu``
+(``wgmma`` fed by TMA), f32 ``csrc/flash_attention.cu`` (``mma.sync`` in
+3xTF32 fed by ``cp.async``).  Each is built and loaded by
+``kernels/build.py`` at first use; nothing is built or loaded at import.
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     fn.restype = ctypes.c_int
 
 
-LIBRARY = KernelLibrary("flash_attention", _bind)              # f32, CUDA cores
+LIBRARY = KernelLibrary("flash_attention", _bind)              # f32, mma.sync 3xTF32
 SM90_LIBRARY = KernelLibrary("flash_attention_sm90", _bind)    # bf16, wgmma + TMA
 BODIES = {torch.float32: LIBRARY, torch.bfloat16: SM90_LIBRARY}
 # launches of each body, by library name: ``ops.flash_attention.launches``
@@ -58,9 +58,10 @@ def check_inputs(q, k, v, window) -> None:
                          f"{HEAD_DIMS}, got {D}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel takes contiguous q, k, v")
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention bf16 kernel reads q, k, v with TMA, "
-                         "which needs 16-byte aligned data")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention kernels read q, k, v in 16-byte "
+                         "copies (TMA for bf16, cp.async for f32), which need "
+                         "16-byte aligned data")
     if B * H > 65535 or S < 1:
         raise ValueError(f"flash_attention kernel: B*H={B * H} must be at "
                          f"most 65535 and S={S} at least 1")
@@ -68,15 +69,16 @@ def check_inputs(q, k, v, window) -> None:
         raise ValueError(f"window must be at least 1, got {window}")
 
 
-def launch(q, k, v, *, causal: bool, window) -> torch.Tensor:
+def launch(q, k, v, *, causal: bool, window, library=None) -> torch.Tensor:
     """Run the dtype's kernel on CUDA tensors q (B, S, H, D), k, v (B, S, KH, D).
 
     Allocates the output, launches on the current stream and raises if
     the launch was refused.  Does not synchronise.  ``BODY_LAUNCHES``
-    counts it under the body's name.
+    counts it under the body's name.  ``library`` is the dtype's body;
+    tools that time altered copies of a source pass their own.
     """
     check_inputs(q, k, v, window)
-    body = BODIES[q.dtype]
+    body = library or BODIES[q.dtype]
     fn = body.load().flash_attention_fwd
     B, S, H, D = q.shape
     out = torch.empty_like(q)

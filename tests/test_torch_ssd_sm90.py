@@ -20,43 +20,11 @@ import numpy as np
 import pytest
 import torch
 
+from _tf32 import mm_3xtf32, mm_tf32, split, tf32
 from repro.models import ssm as JS
 
 CHUNK = 64
 TOL = dict(rtol=2e-3, atol=2e-3)    # f32, as chip_smoke.py's SSD cases
-
-
-def tf32(a: torch.Tensor) -> torch.Tensor:
-    """f32 rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to nearest,
-    ties away from zero, at 10 mantissa bits (the low 13 bits cleared)."""
-    bits = a.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    bits = (bits + 0x1000) & 0xFFFFE000
-    return torch.where(bits >= 2**31, bits - 2**32, bits).to(torch.int32).view(
-        torch.float32)
-
-
-def truncate_tf32(a: torch.Tensor) -> torch.Tensor:
-    """f32 with its low 13 bits cleared: TF32 read off the top 19 bits."""
-    return (a.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
-
-
-def split(a: torch.Tensor):
-    """The kernel's split: hi = a cut to TF32, lo = a - hi (exact in f32) as
-    the tensor core reads it."""
-    hi = truncate_tf32(a)
-    return hi, truncate_tf32(a - hi)
-
-
-def mm_3xtf32(a, b):
-    """a @ b as the kernel's mma3: hi·hi and hi·lo + lo·hi, each sum f32."""
-    ah, al = split(a)
-    bh, bl = split(b)
-    return ah @ bh + (al @ bh + ah @ bl)
-
-
-def mm_tf32(a, b):
-    """a @ b in single-pass TF32."""
-    return tf32(a) @ tf32(b)
 
 
 def kernel_emulation(x, dt, A, Bm, Cm, h0=None, *, mm=mm_3xtf32, tile_p=32):
