@@ -132,7 +132,24 @@ stops with a non-zero exit at the first phase that fails:
     VLM (with vision, nonzero gates), audio (frame embeddings) and MoE
     models through ``make_train_step`` on cuda against the cpu, each
     step's loss within ``TRAIN_LOSS_RTOL``;
-11. a JSON line of the kernels, then the card, then the result line.
+11. the multi-device launch layer, in children started together:
+    11a. ``python -m repro_torch.launch.dryrun`` at full width for
+    ``DRYRUN_CASES`` (``gemma_7b`` train_4k, ``qwen2_moe_a2_7b``
+    prefill_32k and ``qwen1_5_4b`` decode_32k, KV heads padded 20 -> 32, on
+    16 x 16; ``llama3_2_vision_90b`` decode_32k and ``hymba_1_5b``
+    long_500k on 2 x 16 x 16), each on a fake process group of 256 or 512
+    ranks over fake tensors on a ``cuda`` mesh (nothing allocated, the
+    card untouched): seconds, per-device dot FLOPs, collective bytes by
+    kind, per-device memory and the analytic memory against 80 GB, the
+    ops DTensor refused and ran on redistributed inputs; any exception
+    fails the phase; 11b. phase 10's step (``SPMD_ARGS``) without a mesh
+    and through ``make_train_step(mesh=make_host_mesh(), rules=
+    ShardingRules())`` on an NCCL group of world size 1, parameters and
+    AdamW state DTensors on the (1, 1) mesh, both under deterministic
+    algorithms: losses, every parameter and AdamW leaf bit for bit equal
+    (or, failing that, within ``SHARDED_TOL``, the largest difference
+    printed), each step's ms beside phase 10's losses;
+12. a JSON line of the kernels, then the card, then the result line.
 
 It needs no network and exits non-zero, printing no result, without a
 GPU or outside a checkout of the repository.
@@ -408,6 +425,18 @@ SPMD_ARGS = ["--arch", "gwtf-llama-300m", "--mode", "spmd", "--batch", "4",
              "--seq-len", "512", "--steps", "5", "--lr", "1e-3", "--seed", "0",
              "--device", "cuda"]
 SPMD_KINDS = (VLM, "musicgen-medium", "qwen2-moe-a2.7b")
+# phase 11a: the dry run's combinations at full width, (arch, shape, on the
+# 2x16x16 mesh); 11b: phase 10's step on a (1, 1) mesh of one NCCL rank,
+# held bit for bit to the unsharded step, or, failing that, within
+# SHARDED_TOL of it
+DRYRUN_CASES = [("gemma_7b", "train_4k", False),
+                ("qwen2_moe_a2_7b", "prefill_32k", False),
+                ("qwen1_5_4b", "decode_32k", False),
+                ("llama3_2_vision_90b", "decode_32k", True),
+                ("hymba_1_5b", "long_500k", True)]
+LAUNCH_TIMEOUT = 600
+SHARDED_PORT = 29561
+SHARDED_TOL = 2e-4
 
 
 def attended_pairs(S: int, causal: bool, window) -> int:
@@ -1762,7 +1791,7 @@ def phase_spmd():
     print(f"peak memory split, above what earlier phases held: {gib(held)} "
           f"held between steps (params, AdamW moments), forward and backward "
           f"peak {gib(fwd_bwd)}, AdamW update peak {gib(update)}")
-    return launches
+    return launches, losses
 
 
 def spmd_batch(cfg, seed: int, device):
@@ -1814,6 +1843,176 @@ def phase_spmd_vs_cpu():
               f"{', '.join(f'{r:.3g}' for r in rel)}; tol {TRAIN_LOSS_RTOL})")
 
 
+def dryrun_command(arch: str, shape: str, multi_pod: bool, out: Path):
+    return [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+            "--shape", shape, *(["--multi-pod"] if multi_pod else []),
+            "--device", "cuda", "--out", str(out)]
+
+
+def print_dryrun(r: dict, seconds: float):
+    """One combination of 11a: its seconds, per-device dot FLOPs, collective
+    bytes by kind, per-device memory and analytic memory against 80 GB."""
+    gb = lambda n: f"{n / 1e9:.2f} GB"  # noqa: E731
+    mem, analytic = r["memory"], r["analytic_memory"]
+    print(f"{r['arch']} x {r['shape']} x {r['mesh']}: {seconds:.1f} s "
+          f"(trace {r['trace_s']} s), grad_accum {r['grad_accum']} (traced "
+          f"{r['grad_accum_traced']}); dot FLOPs a device {r['dot_flops']:.4e} "
+          f"(global {r['global_flops']:.4e}); collective bytes a device "
+          f"{r['collective_bytes']:.4e} = "
+          + ", ".join(f"{k} {v:.4e}" for k, v in r["collective_detail"].items()
+                      if v)
+          + f" over {int(r['collective_count'])} collectives; memory a device: "
+          f"arguments {gb(mem['argument_size'])}, the step's own peak "
+          f"{gb(mem['temp_size'])}, total {gb(mem['peak'])}; analytic "
+          f"{gb(analytic['total'])} of 80 GB ("
+          f"{'fits' if r['fits'] else 'does not fit'}); ops DTensor refused, "
+          f"run on redistributed inputs: {r['replicated_ops'] or 'none'}")
+
+
+def sharded_step() -> int:
+    """11b, in a child: phase 10's step (``SPMD_ARGS``: full-width
+    ``gwtf-llama-300m``, bf16, 4 x 512, the same seed and batches) without a
+    mesh and through ``make_train_step(mesh=make_host_mesh(),
+    rules=ShardingRules())`` on a process group of world size 1 (NCCL),
+    parameters and AdamW state DTensors on the (1, 1) mesh, both under
+    deterministic algorithms; prints one JSON line."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.sharding import (FALLBACKS, ShardingRules,
+                                               distribute)
+    torch.use_deterministic_algorithms(True)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{SHARDED_PORT}",
+                            rank=0, world_size=1)
+    try:
+        mesh, rules = make_host_mesh("cuda"), ShardingRules()
+        args = train.parser().parse_args(SPMD_ARGS)
+        runs = {}
+        for on_mesh in (False, True):
+            cfg, params, opt_state, _, shard = train.build_spmd(args)
+            step = steps.make_train_step(cfg, AdamW(lr=args.lr),
+                                         mesh=mesh if on_mesh else None,
+                                         rules=rules)
+            losses, secs = [], []
+            for i in range(args.steps):
+                b = shard.next_batch()
+                batch = {k: torch.from_numpy(b[k]).cuda()
+                         for k in ("tokens", "labels")}
+                if on_mesh and i == 0:
+                    (ps, os_, bs), _ = steps.train_shardings(
+                        cfg, params, opt_state, batch, rules, mesh)
+                    params = distribute(params, ps, mesh)
+                    opt_state = distribute(opt_state, os_, mesh)
+                if on_mesh:
+                    batch = distribute(batch, bs, mesh)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt_state, loss = step(params, opt_state, batch)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                losses.append(loss.full_tensor() if on_mesh else loss)
+            full = (lambda t: t.full_tensor()) if on_mesh else (lambda t: t)
+            runs[on_mesh] = dict(
+                losses=losses, secs=secs,
+                leaves=[full(t) for t in leaves(params) + leaves(opt_state)],
+                dtensor=on_mesh and all(type(t).__name__ == "DTensor" for t in
+                                        leaves(params) + leaves(opt_state)))
+            del params, opt_state
+        plain, sharded = runs[False], runs[True]
+        diffs = [float((a.float() - b.float()).abs().max()) for a, b in
+                 zip(plain["losses"] + plain["leaves"],
+                     sharded["losses"] + sharded["leaves"])]
+        print(json.dumps({
+            "losses": [float(x) for x in plain["losses"]],
+            "sharded_losses": [float(x) for x in sharded["losses"]],
+            "bitwise": all(torch.equal(a, b) for a, b in zip(
+                plain["losses"] + plain["leaves"],
+                sharded["losses"] + sharded["leaves"])),
+            "max_abs_diff": max(diffs), "leaves": len(plain["leaves"]),
+            "all_dtensor": sharded["dtensor"],
+            "ms": [x * 1e3 for x in plain["secs"]],
+            "sharded_ms": [x * 1e3 for x in sharded["secs"]],
+            "replicated_ops": dict(FALLBACKS)}))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_launch(spmd_losses):
+    """11a, the dry runs of ``DRYRUN_CASES`` at full width, each a
+    ``launch.dryrun`` child on a fake group of 256 or 512 ranks; 11b,
+    ``sharded_step`` in a child with ``CUBLAS_WORKSPACE_CONFIG`` set; all
+    six started together (the dry runs use the host's cores, not the
+    card), each killed if it outlives ``LAUNCH_TIMEOUT``."""
+    print("== 11. the multi-device launch layer: 11a dry runs at full width "
+          "(fake tensors on a fake process group, nothing allocated; FLOPs, "
+          "collectives and memory counted from the trace, not measured), 11b "
+          "phase 10's step sharded on a (1, 1) mesh (children)")
+    out_dir = ROOT / "build" / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    children = []
+    try:
+        for arch, shape, multi_pod in DRYRUN_CASES:
+            out = out_dir / f"{arch}_{shape}.json"
+            out.unlink(missing_ok=True)
+            children.append((f"{arch} x {shape}", out, time.perf_counter(),
+                             subprocess.Popen(
+                                 dryrun_command(arch, shape, multi_pod, out),
+                                 env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True, cwd=ROOT)))
+        sharded = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--sharded-step"],
+            env=dict(env, CUBLAS_WORKSPACE_CONFIG=":4096:8"),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        children.append(("11b", None, time.perf_counter(), sharded))
+        failed = []
+        print("-- 11a:")
+        for name, out, t0, proc in children:
+            stdout, stderr = proc.communicate(timeout=LAUNCH_TIMEOUT)
+            seconds = time.perf_counter() - t0
+            if proc.returncode != 0:
+                print(stderr[-3000:], file=sys.stderr)
+                failed.append(f"{name} exited {proc.returncode}")
+            elif out is not None:
+                r = json.loads(out.read_text())[-1]
+                print_dryrun(r, seconds)
+                counts = [r["dot_flops"], r["global_flops"], r["collective_bytes"],
+                          *r["collective_detail"].values(),
+                          *r["memory"].values()]
+                devices = 512 if r["mesh"] == "2x16x16" else 256
+                if (min(counts) < 0 or r["dot_flops"] <= 0
+                        or r["dot_flops"] * devices < r["global_flops"] * (1 - 1e-9)):
+                    failed.append(f"{name}: counts {counts}: each must be "
+                                  f"non-negative and the devices' dot FLOPs "
+                                  f"at least the global count")
+            else:
+                result = json.loads(stdout.splitlines()[-1])
+    finally:
+        for *_, proc in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise SystemExit(f"phase 11: {failed}")
+    print(f"-- 11b: phase 10's step on {SPMD_ARGS[1]} in a child: without a "
+          f"mesh, losses {result['losses']} ({', '.join(f'{x:.1f}' for x in result['ms'])} ms); "
+          f"on the (1, 1) mesh, parameters and AdamW state DTensors "
+          f"({result['all_dtensor']}), losses {result['sharded_losses']} "
+          f"({', '.join(f'{x:.1f}' for x in result['sharded_ms'])} ms); losses "
+          f"and all {result['leaves']} parameter and AdamW leaves bit for bit "
+          f"equal: {result['bitwise']} (largest difference "
+          f"{result['max_abs_diff']:.3g}); ops run on redistributed inputs: "
+          f"{result['replicated_ops'] or 'none'}; phase 10's own losses "
+          f"{[round(x, 6) for x in spmd_losses]} (its run without "
+          f"deterministic algorithms)")
+    if not result["all_dtensor"]:
+        raise SystemExit("11b: the sharded step's state is not all DTensors")
+    if not result["bitwise"] and result["max_abs_diff"] > SHARDED_TOL:
+        raise SystemExit(f"11b: sharded and unsharded differ by "
+                         f"{result['max_abs_diff']} > {SHARDED_TOL}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--train-identities", action="store_true",
@@ -1822,6 +2021,9 @@ def main(argv=None) -> int:
     ap.add_argument("--harness-zero-churn", action="store_true",
                     help="run only phase 8's zero-churn checks (the child "
                          "process phase 8a starts)")
+    ap.add_argument("--sharded-step", action="store_true",
+                    help="run only phase 11b's sharded step (the child "
+                         "process phase 11 starts)")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs a GPU",
@@ -1834,6 +2036,8 @@ def main(argv=None) -> int:
         return train_identities()
     if opts.harness_zero_churn:
         return harness_zero_churn()
+    if opts.sharded_step:
+        return sharded_step()
 
     start = time.perf_counter()
 
@@ -1889,11 +2093,17 @@ def main(argv=None) -> int:
 
     # --mode spmd: a main path counted from 0; it launches neither kernel
     torch.cuda.empty_cache()
-    for name, n in phase_spmd().items():
+    spmd_launches, spmd_losses = phase_spmd()
+    for name, n in spmd_launches.items():
         launches[name] += n
     torch.cuda.empty_cache()
     phase_spmd_vs_cpu()
     took("10-10b")
+
+    # the launch layer: the dry runs and the sharded step in children
+    torch.cuda.empty_cache()
+    phase_launch(spmd_losses)
+    took("11a-11b")
 
     kernels = [
         # the main path's body (bf16) is the source; f32 runs the other

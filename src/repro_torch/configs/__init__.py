@@ -10,10 +10,12 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-PORTED = ["gwtf_llama_300m", "gwtf_gpt_300m", "tinyllama_1_1b", "mamba2_130m",
-          "hymba_1_5b", "qwen1_5_4b", "starcoder2_7b", "gwtf_llama_7b",
-          "gemma_7b", "granite_moe_3b_a800m", "qwen2_moe_a2_7b",
-          "musicgen_medium", "llama3_2_vision_90b"]
+# the JAX package's ids in its order: the ten assigned architectures, then
+# the paper's own evaluation models (``launch.dryrun --all`` takes the ten)
+ARCH_IDS = ["musicgen_medium", "mamba2_130m", "qwen1_5_4b", "gemma_7b",
+            "tinyllama_1_1b", "hymba_1_5b", "granite_moe_3b_a800m",
+            "llama3_2_vision_90b", "qwen2_moe_a2_7b", "starcoder2_7b",
+            "gwtf_llama_300m", "gwtf_gpt_300m", "gwtf_llama_7b"]
 
 _ALIASES = {
     "musicgen-medium": "musicgen_medium",
@@ -34,6 +36,6 @@ _ALIASES = {
 
 def get_config(arch: str) -> ModelConfig:
     mod_name = _ALIASES.get(arch, arch).replace("-", "_").replace(".", "_")
-    if mod_name not in PORTED:
+    if mod_name not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch!r}")
     return importlib.import_module(f"repro_torch.configs.{mod_name}").CONFIG

@@ -1,7 +1,8 @@
 """Model configuration for all supported architectures.
 
-A copy of ``repro.models.config.ModelConfig`` (the JAX package's), kept
-here so that the PyTorch port never imports the JAX package.  One frozen
+A copy of ``repro.models.config`` (the JAX package's ``ModelConfig`` and
+the four input shapes of the dry run), kept here so that the PyTorch port
+never imports the JAX package.  One frozen
 dataclass covers the 6 architecture families assigned to this paper
 (dense / ssm / moe / hybrid / vlm / audio) plus the paper's own GPT-like
 and LLaMA-like models.  Every field is explicit so a config file under
@@ -150,3 +151,22 @@ class ModelConfig:
             per_layer_total = per_layer * L
         embed = V * D * (1 if self.tie_embeddings else 2)
         return per_layer_total + embed + 2 * L * D  # + norms
+
+
+# ---------------------------------------------------------------------------
+# Input shapes assigned to this paper.
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                            # train | prefill | decode
+
+
+TRAIN_4K = InputShape("train_4k", 4_096, 256, "train")
+PREFILL_32K = InputShape("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = InputShape("decode_32k", 32_768, 128, "decode")
+LONG_500K = InputShape("long_500k", 524_288, 1, "decode")
+
+INPUT_SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}

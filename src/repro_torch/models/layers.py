@@ -26,6 +26,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel.sharding import (gather_last, merge_last, replicated,
+                                           shard, shard_heads, split_last,
+                                           tp_size)
 
 NEG_INF = -1e30
 
@@ -111,11 +114,11 @@ def init_mlp(generator, cfg: ModelConfig, dtype, device):
 def apply_mlp(p, x, cfg: ModelConfig):
     # jax.nn.gelu defaults to the tanh approximation
     if cfg.mlp_type in ("swiglu", "geglu"):
-        g = x @ p["w_gate"]
+        g = shard(x @ p["w_gate"], "batch", None, "tp")
         act = F.silu(g) if cfg.mlp_type == "swiglu" else F.gelu(g, approximate="tanh")
         h = act * (x @ p["w_up"])
     else:
-        h = F.gelu(x @ p["w_up"], approximate="tanh")
+        h = shard(F.gelu(x @ p["w_up"], approximate="tanh"), "batch", None, "tp")
     return h @ p["w_down"]
 
 
@@ -207,8 +210,8 @@ def _decode_attention(q, ck, cv, kv_valid: int, KH: int, hd: int,
     l = torch.zeros((B, H), dtype=torch.float32, device=q.device)
     acc = torch.zeros((B, H, hd), dtype=torch.float32, device=q.device)
     for start in range(0, C, block):
-        kc = ck[:, start:start + block].reshape(B, block, KH, hd)
-        vc = cv[:, start:start + block].reshape(B, block, KH, hd)
+        kc = split_last(ck[:, start:start + block], KH)
+        vc = split_last(cv[:, start:start + block], KH)
         if rep > 1:
             kc = kc.repeat_interleave(rep, dim=2)
             vc = vc.repeat_interleave(rep, dim=2)
@@ -226,6 +229,41 @@ def _decode_attention(q, ck, cv, kv_valid: int, KH: int, hd: int,
     return out[:, None].to(q.dtype)                         # (B, 1, H, hd)
 
 
+def _pad_heads(x, n: int):
+    """(B, S, h, hd) -> (B, S, n, hd), zero heads after x's."""
+    B, S, h, hd = x.shape
+    zeros = torch.zeros((B, S, n - h, hd), dtype=x.dtype, device=x.device)
+    return torch.cat([x, zeros], dim=2)
+
+
+def _constrain_attention_operands(q, k, v, H, KH):
+    """Pick the TP layout for train/prefill attention (a no-op off a mesh).
+
+    * H %% tp == 0: shard Q by heads evenly; K/V replicated when their
+      head count does not also divide (GSPMD would otherwise shard K's
+      head_dim and psum every score tensor).
+    * H %% tp != 0 (e.g. 36, 25, 20 heads on a 16-way axis): shard Q heads
+      *unevenly* (padded) and replicate K/V — the padding wastes
+      ceil/floor FLOPs but removes the partial-sum all-reduces entirely.
+    """
+    tp = tp_size()
+    if tp <= 1:
+        return q, k, v
+    if H % tp == 0:
+        # even head counts: the propagated layout is psum-free already
+        return q, k, v
+    if KH > tp // 2:
+        # uneven heads but near-MHA K/V (musicgen 24/24, qwen1.5 20/20):
+        # replicating K/V would all-gather d_model-sized tensors per layer
+        return q, k, v
+    # uneven Q heads + genuinely small GQA K/V (starcoder2 36/4, hymba
+    # 25/5): pad-shard Q heads, replicate the small K/V
+    q = shard_heads(q, 2)
+    k = shard(k, "batch", None, None, None)
+    v = shard(v, "batch", None, None, None)
+    return q, k, v
+
+
 def apply_attention(p, x, cfg: ModelConfig, *, positions, causal=True,
                     window=None, kv_x=None, cache=None, write_index=None,
                     kv_valid=None, use_kernel: bool = True):
@@ -237,7 +275,11 @@ def apply_attention(p, x, cfg: ModelConfig, *, positions, causal=True,
     cache: dict(k=(B, C, kv_dim), v=(B, C, kv_dim)), kv
     dims flattened as in the JAX package.  Unlike JAX, the cache is
     updated in place (it is a view into the model's stacked cache) and
-    returned, so decoding never copies it.
+    returned, so decoding never copies it.  A cache wider than kv_dim
+    (``init_cache``'s ``kv_heads_override``) holds zero-padded K/V heads,
+    and Q is padded by whole head groups to match, so that each device of
+    the model axis owns whole heads; the padded heads' outputs are dropped
+    before ``wo``.
 
     Decode semantics: K/V of this step are written at slot
     ``write_index`` (``index % window`` for a ring buffer, else
@@ -246,10 +288,11 @@ def apply_attention(p, x, cfg: ModelConfig, *, positions, causal=True,
     the cache and attends causally over its own pre-write K/V through the
     flash kernel.
 
-    ``use_kernel`` routes causal attention without a cache: through the
-    flash kernel (serving), or, when False, through ``_online_attention``,
-    the path autograd can differentiate (the training stages, as in the
-    JAX package; the kernel has no backward).
+    ``use_kernel`` routes causal self-attention over more than one token:
+    through the flash kernel (serving), or, when False, through
+    ``_online_attention``, the path autograd can differentiate (the
+    training stages, as in the JAX package; the kernel has no backward)
+    and the one DTensor takes (the sharded steps).
 
     Returns (out, cache).
     """
@@ -257,12 +300,12 @@ def apply_attention(p, x, cfg: ModelConfig, *, positions, causal=True,
     H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
     src = x if kv_x is None else kv_x
-    q, k, v = x @ p["wq"], src @ p["wk"], src @ p["wv"]
+    q = shard(x @ p["wq"], "batch", None, "tp")
+    k = shard(src @ p["wk"], "batch", None, "tp")
+    v = shard(src @ p["wv"], "batch", None, "tp")
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, -1, KH, hd)
-    v = v.reshape(B, -1, KH, hd)
+    q, k, v = split_last(q, H), split_last(k, KH), split_last(v, KH)
     if kv_x is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -270,25 +313,38 @@ def apply_attention(p, x, cfg: ModelConfig, *, positions, causal=True,
         raise ValueError("cross-attention takes no KV cache")
 
     if cache is not None:
-        C = cache["k"].shape[1]
+        C, cache_kvd = cache["k"].shape[1:]
         if write_index + S > C:
             raise ValueError(f"{S} tokens at slot {write_index} overflow a "
                              f"cache of {C} slots")
+        KH_eff, H_eff = KH, H
+        if cache_kvd > cfg.kv_dim:          # head-padded cache
+            KH_eff = cache_kvd // hd
+            H_eff = KH_eff * (H // KH)
+            k, v = _pad_heads(k, KH_eff), _pad_heads(v, KH_eff)
+            q = _pad_heads(q, H_eff)
         # copy_ casts K/V to the cache dtype, as JAX's update does
-        cache["k"][:, write_index:write_index + S] = k.reshape(B, S, cfg.kv_dim)
-        cache["v"][:, write_index:write_index + S] = v.reshape(B, S, cfg.kv_dim)
+        cache["k"][:, write_index:write_index + S] = k.reshape(B, S, cache_kvd)
+        cache["v"][:, write_index:write_index + S] = v.reshape(B, S, cache_kvd)
         if S == 1:
-            out = _decode_attention(q, cache["k"], cache["v"], kv_valid, KH, hd)
+            out = _decode_attention(q, cache["k"], cache["v"], kv_valid,
+                                    KH_eff, hd)
         else:
             # the cache was empty: attend over this step's own K/V
-            out = kops.flash_attention(q, k, v, causal=True)
-    elif causal and use_kernel and kv_x is None:
-        out = kops.flash_attention(q, k, v, causal=True, window=window)
+            q, k, v = _constrain_attention_operands(q, k, v, H_eff, KH_eff)
+            out = (kops.flash_attention(q, k, v, causal=True) if use_kernel
+                   else _online_attention(q, k, v, 0, causal=True, window=None))
+        if H_eff > H:
+            out = out[:, :, :H]
     else:
-        out = _online_attention(q, k, v, 0, causal=causal and kv_x is None,
-                                window=window)
+        q, k, v = _constrain_attention_operands(q, k, v, H, KH)
+        if causal and use_kernel and kv_x is None:
+            out = kops.flash_attention(q, k, v, causal=True, window=window)
+        else:
+            out = _online_attention(q, k, v, 0, causal=causal and kv_x is None,
+                                    window=window)
 
-    return out.reshape(B, S, cfg.q_dim) @ p["wo"], cache
+    return merge_last(out) @ p["wo"], cache
 
 
 # ---------------------------------------------------------------------------
@@ -305,7 +361,9 @@ def init_embed(generator, cfg: ModelConfig, dtype, device):
 
 
 def embed_tokens(p, tokens):
-    return p["table"][tokens]
+    # a DTensor's tokens are replicated first: indexing the (vocab, d)
+    # sharded table with tokens sharded over two mesh axes has no strategy
+    return p["table"][replicated(tokens)]
 
 
 def lm_logits(p, x, cfg: ModelConfig):
@@ -331,6 +389,6 @@ def chunked_xent_loss(embed_p, x, labels, cfg: ModelConfig, chunk: int = 512):
         xc, lc = x[:, i * chunk:(i + 1) * chunk], labels[:, i * chunk:(i + 1) * chunk]
         logits = (xc @ w).float()                            # (B, chunk, V)
         logz = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, lc[..., None].long())[..., 0]
+        gold = gather_last(logits, lc)
         total = total + (logz - gold).sum()
     return total / (B * S)

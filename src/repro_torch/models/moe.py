@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init
+from repro_torch.parallel.sharding import shard
 
 
 def init_moe(generator, cfg: ModelConfig, dtype, device):
@@ -75,7 +76,8 @@ def _expert_mlp_dense(p, x, combine, cfg: ModelConfig):
     cw = combine.T.to(x.dtype)                              # (E, T)
     out = torch.zeros_like(x)
     for e in range(cfg.num_experts):
-        h = _act(x @ p["w_gate"][e], cfg) * (x @ p["w_up"][e])   # (T, F)
+        g = shard(x @ p["w_gate"][e], "batch", "tp")
+        h = _act(g, cfg) * (x @ p["w_up"][e])                    # (T, F)
         h = h * cw[e][:, None].to(h.dtype)
         out = out + h @ p["w_down"][e]
     return out
@@ -134,8 +136,8 @@ def _expert_mlp_capacity(p, x, topi, topv, cfg: ModelConfig,
     keep = pos < C
     buf = x.new_zeros((E, C, D))
     buf[se[keep], pos[keep]] = x[st[keep]]
-    h = _act(torch.einsum("ecd,edf->ecf", buf, p["w_gate"]), cfg) * torch.einsum(
-        "ecd,edf->ecf", buf, p["w_up"])
+    g = shard(torch.einsum("ecd,edf->ecf", buf, p["w_gate"]), None, None, "tp")
+    h = _act(g, cfg) * torch.einsum("ecd,edf->ecf", buf, p["w_up"])
     y = torch.einsum("ecf,efd->ecd", h, p["w_down"])        # (E, C, D)
     wk = sw[keep][:, None].to(y.dtype)
     return torch.zeros_like(x).index_add(0, st[keep], y[se[keep], pos[keep]] * wk)
@@ -143,7 +145,13 @@ def _expert_mlp_capacity(p, x, topi, topv, cfg: ModelConfig,
 
 def apply_moe(p, x, cfg: ModelConfig, impl: str = "dense"):
     """x: (B, S, D) -> (out (B, S, D), aux loss).  ``p`` is read by key:
-    a dict, or the model's ``ParamTree``."""
+    a dict, or the model's ``ParamTree``.
+
+    The MoE block runs with the sequence dim *gathered* (no seq sharding):
+    merging a batch-sharded dim with a seq-sharded dim would force
+    pathological resharding of the (T, E, F) expert tensors.  The
+    surrounding block re-applies the sequence-parallel constraint."""
+    x = shard(x, "batch", None, None)
     B, S, D = x.shape
     xt = x.reshape(B * S, D)
     combine, topi, topv, aux = _route(p, xt, cfg)

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init
+from repro_torch.parallel.sharding import dot_last, merge_last, split_last
 
 
 # ---------------------------------------------------------------------------
@@ -37,7 +38,7 @@ def ssd_decode_step(h, xt, dtt, A, Bt, Ct):
     a = torch.exp(dtt * A)
     h = (a[..., None, None] * h
          + (dtt[..., None] * xt)[..., None] * Bt[:, None, None, :])
-    y = torch.einsum("bhpn,bn->bhp", h, Ct)
+    y = dot_last(h, Ct)
     return h, y
 
 
@@ -104,7 +105,7 @@ def apply_mamba(p, x, cfg: ModelConfig, *, cache=None, use_kernel: bool = True):
 
     dt = F.softplus(dt.float() + p["dt_bias"])                     # (B,S,H)
     A = -torch.exp(p["A_log"])                                      # (H,)
-    xh = xs.reshape(B_, S, H, P)                    # a strided view of conv_out
+    xh = split_last(xs, H)                          # a strided view of conv_out
 
     if cache is not None and S == 1:
         h, y = ssd_decode_step(cache["ssm"], xh[:, 0].float(), dt[:, 0], A,
@@ -119,7 +120,7 @@ def apply_mamba(p, x, cfg: ModelConfig, *, cache=None, use_kernel: bool = True):
         cache["ssm"].copy_(h)
 
     y = y + p["D"][None, None, :, None] * xh.float()
-    y = y.reshape(B_, S, di)
+    y = merge_last(y)                                               # (B,S,di)
     # gated RMSNorm (mamba2 style)
     g = y * F.silu(z.float())
     ms = g.square().mean(dim=-1, keepdim=True)

@@ -46,6 +46,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel.sharding import shard
 from repro_torch.tree import flatten, tree_map, unflatten
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -234,12 +235,15 @@ def model_view(cfg: ModelConfig, tree: Dict[str, Any]) -> SimpleNamespace:
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
-               dtype=torch.bfloat16, *, device="cuda") -> Dict[str, Any]:
+               dtype=torch.bfloat16, *, device="cuda",
+               kv_heads_override: Optional[int] = None) -> Dict[str, Any]:
     """Allocate the decode cache.  ``cache_len`` = min(seq_len, window).
 
     An ssm model's cache holds no attention slots; its SSM state is f32
     whatever ``dtype`` (which the conv state takes).  A VLM's self layers
-    hold (nb, k-1, B, C, kv_dim); its cross layers hold nothing."""
+    hold (nb, k-1, B, C, kv_dim); its cross layers hold nothing.
+    kv_heads_override > num_kv_heads pads the cache's head dim so it
+    shards evenly over the model axis (launch/specs.pad_kv_heads)."""
     dev = resolve_device(device)
     if is_vlm(cfg):
         nb, k = superblocks(cfg)
@@ -248,7 +252,8 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
         lead = (cfg.num_layers,)
     c: Dict[str, Any] = {}
     if cfg.has_attention:
-        shape = lead + (batch, cache_len, cfg.kv_dim)
+        kvd = (kv_heads_override or cfg.num_kv_heads) * cfg.head_dim
+        shape = lead + (batch, cache_len, kvd)
         c["attn"] = {"k": torch.zeros(shape, dtype=dtype, device=dev),
                      "v": torch.zeros(shape, dtype=dtype, device=dev)}
     if cfg.has_ssm:
@@ -303,8 +308,11 @@ def _apply_block(bp: Block, x, cfg: ModelConfig, *, positions, window, cache,
     h2 = L.apply_norm(bp.ln2, x, cfg)
     if cfg.is_moe:
         m_out, aux = MOE.apply_moe(bp.moe, h2, cfg, impl=moe_impl)
-        return x + m_out, aux
-    return x + L.apply_mlp(bp.mlp, h2, cfg), 0.0
+    else:
+        m_out, aux = L.apply_mlp(bp.mlp, h2, cfg), 0.0
+    # Megatron-style sequence parallelism: the residual stream between
+    # blocks is sharded along S over the 'model' axis (rules.seq)
+    return shard(x + m_out, "batch", "seq", None), aux
 
 
 def _apply_cross_block(bp, x, vision, cfg: ModelConfig):
@@ -343,6 +351,7 @@ def forward_hidden(model, cfg: ModelConfig, *, tokens=None, embeds=None,
         x = embeds.to(DTYPES[cfg.param_dtype])
     else:
         x = L.embed_tokens(model.embed, tokens)
+    x = shard(x, "batch", "seq", None)
     S = x.shape[1]
     if abs_index is not None:
         positions = abs_index + torch.arange(S, device=x.device)
@@ -411,13 +420,17 @@ def train_loss(model, batch, cfg: ModelConfig, moe_impl: str = "dense",
 
 @torch.inference_mode()
 def prefill(model, cfg: ModelConfig, *, tokens=None, embeds=None,
-            vision=None, cache, moe_impl: str = "dense"):
+            vision=None, cache, moe_impl: str = "dense",
+            use_kernel: bool = True):
     """Fill the cache with a full prompt; returns (last_logits, cache).
 
-    Assumes prompt length <= cache length (no ring wrap during prefill)."""
+    Assumes prompt length <= cache length (no ring wrap during prefill).
+    ``use_kernel=False`` attends through ``_online_attention`` and scans
+    with ``ssd_chunked`` (the sharded steps: a kernel takes no DTensor)."""
     hidden, _, cache = forward_hidden(
         model, cfg, tokens=tokens, embeds=embeds, vision=vision, cache=cache,
-        abs_index=0, write_index=0, moe_impl=moe_impl, remat=False)
+        abs_index=0, write_index=0, moe_impl=moe_impl, use_kernel=use_kernel,
+        remat=False)
     return L.lm_logits(model.embed, hidden[:, -1:], cfg)[:, 0], cache
 
 

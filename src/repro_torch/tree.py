@@ -75,3 +75,20 @@ def tree_map(fn: Callable, tree, *rest) -> Any:
         if len(o) != len(flat):
             raise ValueError(f"tree of {len(o)} leaves against {len(flat)}")
     return unflatten(spec, [fn(*xs) for xs in zip(flat, *others)])
+
+
+def tree_map_with_path(fn: Callable, tree, path: Tuple[Any, ...] = ()) -> Any:
+    """``fn(path, leaf)`` over the leaves, ``path`` the tuple of dict keys
+    and sequence indices (NamedTuple field names) from the root, as
+    ``jax.tree_util.tree_map_with_path`` gives them."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if _is_namedtuple(tree):
+        return type(tree)(*(tree_map_with_path(fn, v, path + (f,))
+                            for f, v in zip(tree._fields, tree)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)

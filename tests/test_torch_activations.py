@@ -12,6 +12,9 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro.core.runtime import activations as J

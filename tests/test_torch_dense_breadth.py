@@ -20,12 +20,15 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro.configs import ARCH_IDS
 from repro.configs import get_config as jax_config
 from repro.core.runtime.serving import serving_inputs as jax_serving_inputs
-from repro_torch.configs import PORTED, get_config
+from repro_torch.configs import ARCH_IDS as PORT_IDS, get_config
 from repro_torch.launch import serve as tserve
 from repro_torch.models.config import ModelConfig
 from repro_torch.weights import params_from_jax
@@ -93,7 +96,7 @@ def test_get_config_every_arch_id():
     for arch in ARCH_IDS:
         assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(
             jax_config(arch))
-    assert sorted(PORTED) == sorted(ARCH_IDS)
+    assert PORT_IDS == ARCH_IDS                   # the same ids, in order
     for alias in ("qwen1.5-4b", "gemma-7b", "starcoder2-7b", "gwtf-llama-7b",
                   "granite-moe-3b-a800m", "qwen2-moe-a2.7b", "musicgen-medium",
                   "llama-3.2-vision-90b"):

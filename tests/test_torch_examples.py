@@ -28,6 +28,9 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro.configs import get_config as jax_config

@@ -20,6 +20,9 @@ import re
 import jax
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro.core.runtime import cache as j_cache

@@ -23,6 +23,9 @@ import types
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro.kernels.ref import attention_reference as jax_reference

@@ -25,6 +25,9 @@ import re
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from _tf32 import mm_3xtf32, mm_tf32

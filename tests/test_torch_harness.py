@@ -32,6 +32,9 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro.core.flow.hierarchy import solve_hierarchical as j_solve_hier

@@ -30,6 +30,9 @@ at lr 3e-3.
 import jax
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro.core.runtime import cache as j_cache

@@ -13,6 +13,9 @@ and engine chain plans, traces, timelines, counters and every greedy
 stream are equal, exactly.
 """
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from tests.test_torch_harness_runtime import serving_checks_equal

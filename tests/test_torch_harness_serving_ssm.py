@@ -8,6 +8,9 @@ plans, traces, timelines, counters and every greedy stream are equal,
 exactly, the port on JAX's model and prompts.
 """
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from tests.test_torch_harness_runtime import serving_checks_equal

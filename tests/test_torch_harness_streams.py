@@ -11,6 +11,9 @@ results (``streams_checked`` included), plans, timelines, counters and
 every stream are equal, exactly.
 """
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from tests.test_torch_harness_runtime import serving_checks_equal

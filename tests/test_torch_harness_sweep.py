@@ -11,6 +11,9 @@ with ``scale_checks``.  Deselected in tier-1 (``pytest.ini``): JAX's
 eager decode alone takes minutes over the serving specs.
 """
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro.core.scenarios import corpus as j_corpus

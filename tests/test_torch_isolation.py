@@ -7,13 +7,20 @@ every module of ``repro_torch``, ``chip_smoke.py`` and the port's examples
 loads and launches no kernel.  The training
 path's, the flow-routed serving path's and the scenario harness's
 modules, the copies of the numpy flow/sim/scenario/data modules among
-them, the VLM and audio configs, ``launch/steps.py`` and the frozen
-reference trainer are on the list.
+them, the VLM and audio configs, ``launch/steps.py``, the frozen
+reference trainer and the multi-device launch layer (``launch.mesh``,
+``specs``, ``dryrun``, ``trace_analysis``, ``parallel.sharding``,
+``core.podmap``) are on the list; after the imports no process group
+exists (importing ``launch.dryrun`` sets up none).
 """
 import os
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -56,7 +63,10 @@ TRAINING = ["checkpoint.store", "core.executor", "core.flow.decentralized",
             # the VLM and audio models, single-program training, the
             # frozen reference trainer
             "configs.musicgen_medium", "configs.llama3_2_vision_90b",
-            "launch.steps", "core.runtime.reference"]
+            "launch.steps", "core.runtime.reference",
+            # the multi-device launch layer and pod mapping
+            "launch.mesh", "launch.specs", "launch.dryrun",
+            "launch.trace_analysis", "parallel.sharding", "core.podmap"]
 missing = [m for m in TRAINING if "repro_torch." + m not in names]
 assert not missing, missing
 for name in names:
@@ -72,13 +82,15 @@ for lib in (flash_attention.LIBRARY, flash_attention.SM90_LIBRARY,
     assert lib.lib is None and lib.build_seconds is None
 assert not any(flash_attention.BODY_LAUNCHES.values())
 assert ops.flash_attention.launches == 0 and ops.ssd_scan.launches == 0
+import torch.distributed as dist
+assert not dist.is_initialized()     # importing launch.dryrun sets up no group
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("imported", len(names))
 """
 EXAMPLES = ["torch_quickstart.py", "torch_decentralized_train.py",
             "torch_serve_decode.py", "torch_scenario_tour.py",
-            "torch_churn_recovery.py"]
+            "torch_churn_recovery.py", "torch_pod_slicing.py"]
 
 
 def test_port_imports_nothing_of_jax():

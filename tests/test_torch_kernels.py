@@ -9,6 +9,9 @@ shared build helper (``kernels/build.py``), with a stand-in for nvcc.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro.kernels import ops as jops

@@ -34,6 +34,9 @@ to 11.  ``LOGITS`` is about 8x the largest of these.
 import gc
 
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 from torch.multiprocessing.reductions import StorageWeakRef
 

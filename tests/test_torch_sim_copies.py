@@ -15,6 +15,9 @@ The copies are held line for line by ``test_torch_train_copies.py``.
 import numpy as np
 import pytest
 
+pytest.importorskip("torch")
+
+
 from repro.core import join as j_join
 from repro.core import membership as j_membership
 from repro.core.flow import graph as j_graph

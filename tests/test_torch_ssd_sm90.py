@@ -18,6 +18,9 @@ version on the card by ``chip_smoke.py``.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from _tf32 import mm_3xtf32, mm_tf32, split, tf32

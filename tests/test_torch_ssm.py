@@ -19,6 +19,9 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro.configs import get_config as jax_config

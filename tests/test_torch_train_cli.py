@@ -8,6 +8,9 @@ import sys
 from pathlib import Path
 
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro_torch.launch import train

@@ -26,6 +26,9 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+pytest.importorskip("torch")
+
+
 from repro.core.flow import graph as j_graph
 from repro.core.flow import mincost as j_mincost
 from repro.core.scenarios import generate as j_generate

@@ -17,6 +17,9 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro.configs import get_config as jax_config
