@@ -139,10 +139,12 @@ stops with a non-zero exit at the first phase that fails:
     16 x 16; ``llama3_2_vision_90b`` decode_32k and ``hymba_1_5b``
     long_500k on 2 x 16 x 16), each on a fake process group of 256 or 512
     ranks over fake tensors on a ``cuda`` mesh (nothing allocated, the
-    card untouched): seconds, per-device dot FLOPs, collective bytes by
-    kind, per-device memory and the analytic memory against 80 GB, the
-    ops DTensor refused and ran on redistributed inputs; any exception
-    fails the phase; 11b. phase 10's step (``SPMD_ARGS``) without a mesh
+    card untouched): seconds, per-device dot FLOPs, "x ideal" (dot FLOPs
+    x devices over the unsharded step's FLOPs: how many devices repeat
+    each product), collective bytes by kind, per-device memory and the
+    analytic memory against 80 GB; any exception (an op DTensor refuses
+    raises) fails the phase, and so does an "x ideal" above
+    ``DRYRUN_X_IDEAL``'s bound for its combination; 11b. phase 10's step (``SPMD_ARGS``) without a mesh
     and through ``make_train_step(mesh=make_host_mesh(), rules=
     ShardingRules())`` on an NCCL group of world size 1, parameters and
     AdamW state DTensors on the (1, 1) mesh, both under deterministic
@@ -434,6 +436,16 @@ DRYRUN_CASES = [("gemma_7b", "train_4k", False),
                 ("qwen1_5_4b", "decode_32k", False),
                 ("llama3_2_vision_90b", "decode_32k", True),
                 ("hymba_1_5b", "long_500k", True)]
+# the most "x ideal" each may read, just above what the steps read on
+# NVIDIA H100 80GB HBM3, torch 2.11: 1.10 where nothing repeats (the first
+# three read 1.0000, 1.0026 and 1.0000); llama3_2_vision_90b repeats its
+# vision projection, whose weight has no model-axis dim, over the model
+# axis as GSPMD does (2.968), hymba_1_5b its batch of 1 over the data axes
+# (15.88).  With DTensor's own layouts the five read 3.55, 3.86, 12.26,
+# 12.35 and 114.2.
+DRYRUN_X_IDEAL = {"gemma_7b": 1.10, "qwen2_moe_a2_7b": 1.10,
+                  "qwen1_5_4b": 1.10, "llama3_2_vision_90b": 3.3,
+                  "hymba_1_5b": 17.5}
 LAUNCH_TIMEOUT = 600
 SHARDED_PORT = 29561
 SHARDED_TOL = 2e-4
@@ -1865,8 +1877,8 @@ def print_dryrun(r: dict, seconds: float):
           f"arguments {gb(mem['argument_size'])}, the step's own peak "
           f"{gb(mem['temp_size'])}, total {gb(mem['peak'])}; analytic "
           f"{gb(analytic['total'])} of 80 GB ("
-          f"{'fits' if r['fits'] else 'does not fit'}); ops DTensor refused, "
-          f"run on redistributed inputs: {r['replicated_ops'] or 'none'}")
+          f"{'fits' if r['fits'] else 'does not fit'}); x ideal "
+          f"{r['x_ideal']:.4f} (at most {DRYRUN_X_IDEAL[r['arch']]})")
 
 
 def sharded_step() -> int:
@@ -1878,8 +1890,7 @@ def sharded_step() -> int:
     deterministic algorithms; prints one JSON line."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.parallel.sharding import (FALLBACKS, ShardingRules,
-                                               distribute)
+    from repro_torch.parallel.sharding import ShardingRules, distribute
     torch.use_deterministic_algorithms(True)
     torch.cuda.set_device(0)
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{SHARDED_PORT}",
@@ -1931,8 +1942,7 @@ def sharded_step() -> int:
             "max_abs_diff": max(diffs), "leaves": len(plain["leaves"]),
             "all_dtensor": sharded["dtensor"],
             "ms": [x * 1e3 for x in plain["secs"]],
-            "sharded_ms": [x * 1e3 for x in sharded["secs"]],
-            "replicated_ops": dict(FALLBACKS)}))
+            "sharded_ms": [x * 1e3 for x in sharded["secs"]]}))
     finally:
         dist.destroy_process_group()
     return 0
@@ -1986,6 +1996,9 @@ def phase_launch(spmd_losses):
                     failed.append(f"{name}: counts {counts}: each must be "
                                   f"non-negative and the devices' dot FLOPs "
                                   f"at least the global count")
+                if r["x_ideal"] > DRYRUN_X_IDEAL[r["arch"]]:
+                    failed.append(f"{name}: x ideal {r['x_ideal']:.4f} above "
+                                  f"{DRYRUN_X_IDEAL[r['arch']]}")
             else:
                 result = json.loads(stdout.splitlines()[-1])
     finally:
@@ -2002,8 +2015,7 @@ def phase_launch(spmd_losses):
           f"({', '.join(f'{x:.1f}' for x in result['sharded_ms'])} ms); losses "
           f"and all {result['leaves']} parameter and AdamW leaves bit for bit "
           f"equal: {result['bitwise']} (largest difference "
-          f"{result['max_abs_diff']:.3g}); ops run on redistributed inputs: "
-          f"{result['replicated_ops'] or 'none'}; phase 10's own losses "
+          f"{result['max_abs_diff']:.3g}); phase 10's own losses "
           f"{[round(x, 6) for x in spmd_losses]} (its run without "
           f"deterministic algorithms)")
     if not result["all_dtensor"]:

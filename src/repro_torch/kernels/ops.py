@@ -45,12 +45,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
 flash_attention.launches = 0
 
 
+def ssd_chunk(S):
+    """The JAX model's SSD chunk rule: 64 rows when S is a multiple of 64,
+    else one chunk of all S."""
+    return 64 if S % 64 == 0 else S
+
+
 def ssd_scan_plain(x, dt, A, Bm, Cm, *, h0=None):
     """The plain version of ``ssd_scan``, on any device: ``ssd_chunked``
-    with the JAX model's chunk rule, 64 rows when S is a multiple of 64,
-    else one chunk of all S."""
-    S = x.shape[1]
-    return ssd_chunked(x, dt, A, Bm, Cm, h0=h0, chunk=64 if S % 64 == 0 else S)
+    with the chunk rule of ``ssd_chunk``."""
+    return ssd_chunked(x, dt, A, Bm, Cm, h0=h0, chunk=ssd_chunk(x.shape[1]))
 
 
 def ssd_scan(x, dt, A, Bm, Cm, *, h0=None):

@@ -34,12 +34,14 @@ def attention_reference(q, k, v, *, causal: bool = True, window=None):
     return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
 
 
-def ssd_chunked(x, dt, A, B, C, h0=None, chunk: int = 64):
+def ssd_chunked(x, dt, A, B, C, h0=None, chunk: int = 64, CB=None):
     """Chunked SSD: O(S*Q) intra-chunk products + O(S/Q) sequential carry.
 
     x (b, S, H, P); dt (b, S, H); A (H,); B, C (b, S, N); h0 (b, H, P, N)
     or None.  Returns y (b, S, H, P) in x's dtype and h_final
-    (b, H, P, N) f32, as ``repro.models.ssm.ssd_chunked``.
+    (b, H, P, N) f32, as ``repro.models.ssm.ssd_chunked``.  ``CB``, the
+    chunks' C Bᵀ (b, S / chunk, chunk, chunk) f32, computed once for all
+    heads (``chunk_products``), takes the place of each chunk's product.
     """
     b, S, H, P = x.shape
     N = B.shape[-1]
@@ -61,11 +63,12 @@ def ssd_chunked(x, dt, A, B, C, h0=None, chunk: int = 64):
         xc, dtc, Bc, Cc = xf[:, c], dtf[:, c], Bf[:, c], Cf[:, c]
         L = torch.cumsum(dtc * A, dim=1)           # inclusive log decay (b,Q,H)
         # intra-chunk: M[t,s] = exp(L[t]-L[s]) * dt[s] * (C[t].B[s]), s<=t
-        CB = torch.einsum("btn,bsn->bts", Cc, Bc)
+        CB_c = (torch.einsum("btn,bsn->bts", Cc, Bc) if CB is None
+                else CB[:, c])
         delta = L[:, :, None, :] - L[:, None, :, :]                # (b,t,s,H)
         # mask the exponent *before* exp: the s>t half would overflow
         delta = torch.where(causal, delta, 0.0)
-        M = CB[..., None] * torch.exp(delta) * dtc[:, None, :, :]
+        M = CB_c[..., None] * torch.exp(delta) * dtc[:, None, :, :]
         M = torch.where(causal, M, 0.0)
         y_intra = torch.einsum("btsh,bshp->bthp", M, xc)
         # contribution of the incoming state: y += exp(L[t]) * C[t] . h
@@ -78,6 +81,18 @@ def ssd_chunked(x, dt, A, B, C, h0=None, chunk: int = 64):
         ys.append(y_intra + y_state)
     y = torch.stack(ys, dim=1).reshape(b, S, H, P)
     return y.to(x.dtype), h
+
+
+def chunk_products(B, C, chunk: int, rows=None):
+    """C Bᵀ within each chunk of ``chunk`` positions, f32: B, C (b, S, N)
+    -> (b, S / chunk, chunk, chunk), ``ssd_chunked``'s per-chunk product.
+    ``rows`` (offset, count): only those rows t of each chunk."""
+    b, S, N = B.shape
+    Bf = B.float().reshape(b, S // chunk, chunk, N)
+    Cf = C.float().reshape(b, S // chunk, chunk, N)
+    if rows is not None:
+        Cf = Cf[:, :, rows[0]:rows[0] + rows[1]]
+    return torch.einsum("bctn,bcsn->bcts", Cf, Bf)
 
 
 def ssd_reference(x, dt, A, B, C, h0=None):

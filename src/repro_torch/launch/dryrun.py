@@ -33,6 +33,8 @@ shards on one device; ``temp_size`` the peak of what the step allocates
 on it, from ``MemTracker`` over the fake shards; ``peak`` their sum.
 ``analytic_memory`` is the JAX package's model, copied exactly, and
 ``fits`` says whether its total is within one H100's 80 GB.
+``x_ideal`` is the per-device dot FLOPs times the devices over the FLOPs
+of the same step run unsharded: how many devices repeat each product.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma_7b --shape train_4k
@@ -65,12 +67,13 @@ from repro_torch.launch.specs import (abstract_params, decode_cache_len,
 from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
                                       make_train_step, serve_shardings,
                                       train_shardings)
-from repro_torch.launch.trace_analysis import StepCosts, analyze_step
+from repro_torch.launch.trace_analysis import (StepCosts, analyze_step,
+                                               count_flops)
 from repro_torch.models.config import INPUT_SHAPES, InputShape, ModelConfig
 from repro_torch.models.transformer import init_cache, is_vlm, model_view
 from repro_torch.optim.adamw import AdamW
 from repro_torch.parallel.sharding import ShardingRules, distribute
-from repro_torch.tree import leaves
+from repro_torch.tree import leaves, tree_map
 
 
 def analytic_memory(cfg, shape, *, chips: int, grad_accum: int) -> Dict[str, float]:
@@ -157,8 +160,6 @@ def _combine(a: StepCosts, b: StepCosts, wa: float, wb: float,
     out.comm_counts = {k: wa * a.comm_counts.get(k, 0)
                        + wb * b.comm_counts.get(k, 0)
                        for k in set(a.comm_counts) | set(b.comm_counts)}
-    out.retried = {k: wa * a.retried.get(k, 0) + wb * b.retried.get(k, 0)
-                   for k in set(a.retried) | set(b.retried)}
     return out
 
 
@@ -172,10 +173,17 @@ def _depths(cfg: ModelConfig):
 def _trace(cfg, shape, mesh, rules, moe_impl, grad_accum):
     """One eager step of ``cfg`` on ``mesh``: ``(StepCosts, argument bytes
     a device)``; a train step at one microbatch, scaled to
-    ``grad_accum``."""
+    ``grad_accum``.  Its ``global_flops`` count the same step unsharded
+    over fake tensors of the global shapes."""
     params_abs = abstract_params(cfg)
     fake = FakeTensorMode(allow_non_fake_inputs=True)
     opt_state = None
+
+    def whole(tree):
+        with fake:
+            return tree_map(lambda t: torch.zeros(
+                t.shape, dtype=t.dtype, device=mesh.device_type), tree)
+
     if shape.kind == "train":
         opt = AdamW()
         opt_abs = opt.init(params_abs)
@@ -191,6 +199,9 @@ def _trace(cfg, shape, mesh, rules, moe_impl, grad_accum):
         step = make_train_step(cfg, opt, mesh=mesh, rules=rules,
                                moe_impl=moe_impl)
         _, costs = analyze_step(step, params, opt_state, batch)
+        costs.global_flops = count_flops(
+            make_train_step(cfg, opt, moe_impl=moe_impl), whole(params_abs),
+            whole(opt_abs), whole(batch_abs))
         if grad_accum > 1:
             _, update = analyze_step(opt.update, params, opt_state, params)
             costs = _combine(costs, update, grad_accum, 1 - grad_accum,
@@ -207,7 +218,11 @@ def _trace(cfg, shape, mesh, rules, moe_impl, grad_accum):
             batch = distribute(batch_abs, bspec, mesh)
         step = make_prefill_step(cfg, shape.seq_len, mesh=mesh, rules=rules,
                                  moe_impl=moe_impl)
-        _, costs = analyze_step(step, model_view(cfg, params), batch)
+        _, costs = analyze_step(step, model_view(cfg, params), batch,
+                                inputs=(params, batch))
+        costs.global_flops = count_flops(
+            make_prefill_step(cfg, shape.seq_len, moe_impl=moe_impl),
+            model_view(cfg, whole(params_abs)), whole(batch_abs))
     else:
         batch_abs = input_specs(cfg, shape)
         window = (cfg.sliding_window
@@ -223,7 +238,12 @@ def _trace(cfg, shape, mesh, rules, moe_impl, grad_accum):
         batch["index"] = shape.seq_len - 1
         step = make_decode_step(cfg, window=window, mesh=mesh, rules=rules,
                                 moe_impl=moe_impl)
-        _, costs = analyze_step(step, model_view(cfg, params), batch)
+        _, costs = analyze_step(step, model_view(cfg, params), batch,
+                                inputs=(params, batch))
+        plain = dict(whole(batch_abs), index=batch["index"])
+        costs.global_flops = count_flops(
+            make_decode_step(cfg, window=window, moe_impl=moe_impl),
+            model_view(cfg, whole(params_abs)), plain)
     args = [a for a in (params, batch, opt_state) if a is not None]
     return costs, _local_bytes(args)
 
@@ -303,11 +323,12 @@ def run_one(arch: str, shape_name: Union[str, InputShape], *, multi_pod: bool,
         "trace_s": round(elapsed, 1),
         "dot_flops": costs.dot_flops,                # per device
         "global_flops": costs.global_flops,
+        # how many devices repeat each product (1: none)
+        "x_ideal": costs.dot_flops * chips / max(costs.global_flops, 1.0),
         "collective_bytes": costs.total_collective_bytes,
         "collective_detail": dict(costs.collective_bytes),
         "collective_count": costs.collective_count,
         "collective_ops": costs.comm_counts,
-        "replicated_ops": {k: int(v) for k, v in costs.retried.items()},
         "memory": {
             "argument_size": arg_bytes,
             "temp_size": costs.temp_peak_bytes,
@@ -325,9 +346,8 @@ def run_one(arch: str, shape_name: Union[str, InputShape], *, multi_pod: bool,
               f"(analytic {analytic['total'] / 1e9:.2f}GB of "
               f"{HBM_BYTES / 1e9:.0f}GB: "
               f"{'fits' if result['fits'] else 'does not fit'})")
-        print(f"  collectives: {result['collective_detail']}; inputs "
-              f"replicated where DTensor refused an op: "
-              f"{result['replicated_ops'] or 'none'}")
+        print(f"  collectives: {result['collective_detail']}; x ideal "
+              f"{result['x_ideal']:.3f}")
     return result
 
 

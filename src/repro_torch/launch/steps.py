@@ -26,7 +26,6 @@ import contextlib
 from typing import Optional
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate
 from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.core.runtime.stages import with_zeros
@@ -35,30 +34,22 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (decode_step, init_cache,
                                             model_view, prefill, train_loss)
 from repro_torch.optim.adamw import AdamW, AdamWState
-from repro_torch.parallel.sharding import (P, ReplicateOnFailure,
-                                           ShardingRules, distribute,
-                                           param_spec_tree, use_rules)
+from repro_torch.parallel.sharding import (NameRefusals, P, ShardingRules,
+                                           distribute, param_spec_tree,
+                                           replicated, use_rules)
 from repro_torch.tree import flatten, tree_map_with_path, unflatten
 
 
 @contextlib.contextmanager
 def _on_mesh(mesh, rules: Optional[ShardingRules]):
     """The rules active, plain tensors replicated where they meet a
-    DTensor, and an op DTensor refuses run on redistributed inputs
-    (``ReplicateOnFailure``); nothing without a mesh."""
+    DTensor, and an op DTensor refuses raised with its placements
+    (``NameRefusals``); nothing without a mesh."""
     if mesh is None:
         yield
         return
-    with use_rules(rules, mesh), implicit_replication(), ReplicateOnFailure():
+    with use_rules(rules, mesh), implicit_replication(), NameRefusals():
         yield
-
-
-def _replicated(x):
-    """A DTensor scalar replicated on its mesh (JAX's scalar output
-    sharding); a plain tensor as it is."""
-    if not isinstance(x, DTensor):
-        return x
-    return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
 
 
 def loss_and_grads(params, batch, cfg: ModelConfig, moe_impl: str = "dense"):
@@ -102,7 +93,8 @@ def make_train_step(cfg: ModelConfig, opt: Optional[AdamW] = None,
         else:
             loss, grads = loss_and_grads(params, batch, cfg, moe_impl)
         new_params, new_state = opt.update(grads, opt_state, params)
-        return new_params, new_state, _replicated(loss)
+        # JAX's scalar output sharding
+        return new_params, new_state, replicated(loss)
 
     return train_step
 

@@ -16,12 +16,11 @@ counts what each device would do:
 * ``collective_count``;
 * ``temp_peak_bytes``   — the peak of what the step allocates on one
   device (``MemTracker`` over the shards; its inputs not counted);
-* ``retried``           — the ops ``sharding.ReplicateOnFailure`` ran on
-  redistributed inputs, by name;
-* ``global_flops``      — ``FlopCounterMode`` over the same step, which
-  sees the DTensor-level ops at their global shapes; with every dot
-  sharded it equals ``dot_flops`` times the devices, and it is less by
-  whatever a device repeats (a replicated product).
+* ``global_flops``      — the FLOPs of the same step run unsharded, as
+  one device would run it, over fake tensors of the global shapes
+  (``count_flops``; the caller sets it): with every product sharded it
+  equals ``dot_flops`` times the devices, and it is less by whatever the
+  devices repeat (a replicated product, heads padded to the model axis).
 
 How: a dispatch mode that declines (``NotImplemented``) every op on a
 DTensor, as ``CommDebugMode`` does, so DTensor desugars it into local ops
@@ -37,28 +36,21 @@ iteration by iteration, so nothing is counted once for many trips.
 ``f32_legalization_bytes``: XLA:CPU converts bf16 GEMM operands to f32
 copies that no eager op makes.
 
-Where the port departs from GSPMD's layouts, the collectives differ from
-the JAX package's, and ``retried`` and the dry run's record name the ops:
+The step's work is laid out by hand as GSPMD lays it out
+(``sharding.project``, ``sharding.on_shards``); where DTensor refuses an
+op of the step, the step raises (``sharding.NameRefusals``).  The
+collectives still differ from the JAX package's where the port moves data
+another way:
 
-* ops DTensor refuses (``sharding.ReplicateOnFailure`` runs them on
-  redistributed inputs).  Torch 2.11 refuses views
-  that merge a sharded dim into another (``aten.view``,
-  ``aten._unsafe_view``: the training backward's head merges; inside
-  ``aten.einsum`` and ``aten.matmul``: attention with sharded heads, a
-  projection of the sequence-sharded residual) and has no strategy for
-  ``aten.flip`` (the SSD scan's backward); torch 2.13 refuses fewer;
-* the embedding lookup's tokens, replicated before indexing the
-  vocab-sharded table (``layers.embed_tokens``);
-* a head count the model axis does not divide, replicated before the
-  heads are split (``sharding.split_last``), and a merge whose inner dim
-  is sharded (``sharding.merge_last``);
+* heads the model axis does not divide, gathered before they are split
+  and merged (``sharding.split_last``, ``sharding.merge_last``), where
+  GSPMD reshards the padded layout;
 * the cross-entropy's gold logit as a masked sum over the sharded vocab
-  (``sharding.gather_last``), and the SSM decode's state contraction as
-  a product and a sum (``sharding.dot_last``, no dot FLOPs).
+  (``sharding.gather_last``).
 """
 from __future__ import annotations
 
-from collections import Counter
+import contextlib
 from dataclasses import dataclass, field
 from typing import Dict
 
@@ -71,7 +63,6 @@ from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode, flop_registry
 
-from repro_torch.parallel.sharding import FALLBACKS
 
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                "collective-permute")
@@ -98,7 +89,6 @@ class StepCosts:
     global_flops: float = 0.0
     temp_peak_bytes: int = 0
     comm_counts: Dict[str, int] = field(default_factory=dict)
-    retried: Dict[str, int] = field(default_factory=dict)
 
     @property
     def total_collective_bytes(self) -> float:
@@ -145,6 +135,15 @@ class _LocalCosts(TorchDispatchMode):
         kwargs = kwargs or {}
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented
+        if (func._overloadpacket not in flop_registry
+                and func is not torch.ops.prim.device.default):
+            # a composite (``matmul``, ``einsum`` under inference mode)
+            # reaches the mode whole: count its decomposition, as
+            # ``FlopCounterMode`` does
+            with self:
+                out = func.decompose(*args, **kwargs)
+            if out is not NotImplemented:
+                return out
         out = func(*args, **kwargs)
         if (isinstance(func, torch._ops.HigherOrderOperator)
                 or _foreign((args, kwargs), self.modes)):
@@ -160,28 +159,50 @@ class _LocalCosts(TorchDispatchMode):
         return out
 
 
-def analyze_step(fn, *args, **kwargs):
+def _per_device(snapshot) -> Dict:
+    return {dev: per_kind["Total"] for dev, per_kind in snapshot.items()
+            if dev.type != "meta"}
+
+
+def analyze_step(fn, *args, inputs=None, **kwargs):
     """Run ``fn(*args, **kwargs)`` twice, the second time traced, and count
     its per-device costs: ``(result, StepCosts)``.  The first run caches
     DTensor's sharding propagation, so that the traced run allocates none
     of its global-shape tensors, which ``MemTracker`` would count; ``fn``
     must bear running twice (a functional step, or one that rewrites the
-    same cache slots)."""
+    same cache slots).  ``inputs`` (default: the arguments) holds every
+    tensor the step is given, a model's parameters among them: their
+    shards are tracked from the start and left out of the step's peak
+    (``MemTracker`` would count a storage the first time the step takes a
+    view of it, a layer's slice of a stacked cache or weight)."""
     fn(*args, **kwargs)
     costs = StepCosts()
-    before = Counter(FALLBACKS)
     memory = MemTracker()
+    shards = [t._local_tensor if isinstance(t, DTensor) else t
+              for t in pytree.tree_leaves((args, kwargs) if inputs is None
+                                          else inputs)
+              if isinstance(t, torch.Tensor) and t.device.type != "meta"]
+    memory.track_external(*shards)
     with memory, CommDebugMode() as comm, \
-            _LocalCosts(costs, _shard_modes((args, kwargs))), \
-            FlopCounterMode(display=False) as flops:
+            _LocalCosts(costs, _shard_modes((args, kwargs))):
+        given = _per_device(memory.get_tracker_snapshot("current"))
         out = fn(*args, **kwargs)
-    costs.global_flops = float(flops.get_total_flops())
     # the devices' own memory: sharding propagation's shape inference on
     # the meta device (global shapes, no storage) is left out
-    costs.temp_peak_bytes = max(
-        (per_kind["Total"] for dev, per_kind in
-         memory.get_tracker_snapshot("peak").items() if dev.type != "meta"),
-        default=0)
+    peak = _per_device(memory.get_tracker_snapshot("peak"))
+    costs.temp_peak_bytes = max((peak[d] - given.get(d, 0) for d in peak),
+                                default=0)
     costs.comm_counts = {str(k): v for k, v in comm.get_comm_counts().items()}
-    costs.retried = dict(Counter(FALLBACKS) - before)
     return out, costs
+
+
+def count_flops(fn, *args, **kwargs) -> float:
+    """The FLOPs ``FlopCounterMode`` counts in ``fn(*args, **kwargs)``, run
+    under the fake mode of its fake tensor inputs, so that what it
+    allocates is fake too (a step unsharded at its global shapes)."""
+    modes = {t.fake_mode for t in pytree.tree_leaves((args, kwargs))
+             if isinstance(t, FakeTensor)}
+    fake = modes.pop() if modes else contextlib.nullcontext()
+    with fake, FlopCounterMode(display=False) as flops:
+        fn(*args, **kwargs)
+    return float(flops.get_total_flops())

@@ -23,12 +23,15 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
-from repro_torch.parallel.sharding import (gather_last, merge_last, replicated,
-                                           shard, shard_heads, split_last,
-                                           tp_size)
+from repro_torch.parallel.sharding import (dim_shards, embed, gather_last,
+                                           locally, logsumexp_last,
+                                           merge_last, on_shards, project,
+                                           seq_blocks, shard, split_last,
+                                           tp_range, tp_size)
 
 NEG_INF = -1e30
 
@@ -114,12 +117,13 @@ def init_mlp(generator, cfg: ModelConfig, dtype, device):
 def apply_mlp(p, x, cfg: ModelConfig):
     # jax.nn.gelu defaults to the tanh approximation
     if cfg.mlp_type in ("swiglu", "geglu"):
-        g = shard(x @ p["w_gate"], "batch", None, "tp")
+        g = shard(project(x, p["w_gate"]), "batch", None, "tp")
         act = F.silu(g) if cfg.mlp_type == "swiglu" else F.gelu(g, approximate="tanh")
-        h = act * (x @ p["w_up"])
+        h = act * project(x, p["w_up"])
     else:
-        h = shard(F.gelu(x @ p["w_up"], approximate="tanh"), "batch", None, "tp")
-    return h @ p["w_down"]
+        h = shard(F.gelu(project(x, p["w_up"]), approximate="tanh"),
+                  "batch", None, "tp")
+    return project(h, p["w_down"])
 
 
 # ---------------------------------------------------------------------------
@@ -146,18 +150,21 @@ def init_attention(generator, cfg: ModelConfig, dtype, device,
 
 def _online_attention(q, k, v, q_offset: int, causal: bool,
                       window: Optional[int], kv_len_valid=None,
-                      q_block: int = 512):
+                      q_block: int = 512, kv_heads=None):
     """Plain attention over query blocks, full K/V per block.
 
     The plain twin of the kernel for any query offset and KV length;
     ``apply_attention`` takes it for non-causal attention, as the JAX
     package does.  q: (B, Sq, H, hd); k/v: (B, Sk, KH, hd).  GQA via head
-    repeat.  Memory per block: B*H*q_block*Sk — bounded, never S^2.
+    repeat, or ``kv_heads``, the K/V head of each query head (``_attend``).
+    Memory per block: B*H*q_block*Sk — bounded, never S^2.
     """
     B, Sq, H, hd = q.shape
-    Sk, KH = k.shape[1], k.shape[2]
-    rep = H // KH
-    if rep > 1:
+    Sk = k.shape[1]
+    if kv_heads is not None:
+        k, v = k.index_select(2, kv_heads), v.index_select(2, kv_heads)
+    elif H > k.shape[2]:
+        rep = H // k.shape[2]
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
     scale = hd ** -0.5
@@ -188,20 +195,21 @@ def _online_attention(q, k, v, q_offset: int, causal: bool,
 
 
 def _decode_attention(q, ck, cv, kv_valid: int, KH: int, hd: int,
-                      block: int = 2048):
+                      block: int = 2048, kv_heads=None):
     """Single-token attention against the KV cache, online softmax over
     chunks of ``min(block, C)`` slots.
 
     q: (B, 1, H, hd); ck/cv: (B, C, KH*hd) flattened cache, of the
     cache's dtype (f32 in serving, where q is bf16 at full width: JAX
-    promotes the products to f32, and so does this function).
+    promotes the products to f32, and so does this function).  GQA by
+    head repeat, or ``kv_heads`` as in ``_online_attention``.
     """
     B, _, H, _ = q.shape
     C = ck.shape[1]
     block = min(block, C)
     if C % block:
         raise ValueError(f"cache length {C} not divisible by block {block}")
-    rep = H // KH
+    rep = H // KH if kv_heads is None else 1
     # JAX rounds the weak-typed scale to q's dtype before multiplying
     scale = torch.tensor(hd ** -0.5, dtype=q.dtype).item()
     qf = (q[:, 0] * scale).float()                          # (B, H, hd)
@@ -212,7 +220,9 @@ def _decode_attention(q, ck, cv, kv_valid: int, KH: int, hd: int,
     for start in range(0, C, block):
         kc = split_last(ck[:, start:start + block], KH)
         vc = split_last(cv[:, start:start + block], KH)
-        if rep > 1:
+        if kv_heads is not None:
+            kc, vc = kc.index_select(2, kv_heads), vc.index_select(2, kv_heads)
+        elif rep > 1:
             kc = kc.repeat_interleave(rep, dim=2)
             vc = vc.repeat_interleave(rep, dim=2)
         sc = torch.einsum("bhd,bkhd->bhk", qf, kc.float())  # (B, H, block)
@@ -236,32 +246,45 @@ def _pad_heads(x, n: int):
     return torch.cat([x, zeros], dim=2)
 
 
-def _constrain_attention_operands(q, k, v, H, KH):
-    """Pick the TP layout for train/prefill attention (a no-op off a mesh).
+def _attend(core, q, k, v):
+    """``core(q, k, v, kv_heads)`` on each device's query heads (a plain
+    ``core(q, k, v, None)`` off a mesh).  q: (B, Sq, H, hd); k, v: (B, Sk,
+    KH, hd) or a flat cache (B, C, KH * hd).  The layout of train and
+    prefill attention and of decode, as the JAX package constrains it
+    (``_constrain_attention_operands`` there):
 
-    * H %% tp == 0: shard Q by heads evenly; K/V replicated when their
-      head count does not also divide (GSPMD would otherwise shard K's
-      head_dim and psum every score tensor).
-    * H %% tp != 0 (e.g. 36, 25, 20 heads on a 16-way axis): shard Q heads
-      *unevenly* (padded) and replicate K/V — the padding wastes
-      ceil/floor FLOPs but removes the partial-sum all-reduces entirely.
-    """
-    tp = tp_size()
-    if tp <= 1:
-        return q, k, v
-    if H % tp == 0:
-        # even head counts: the propagated layout is psum-free already
-        return q, k, v
-    if KH > tp // 2:
-        # uneven heads but near-MHA K/V (musicgen 24/24, qwen1.5 20/20):
-        # replicating K/V would all-gather d_model-sized tensors per layer
-        return q, k, v
-    # uneven Q heads + genuinely small GQA K/V (starcoder2 36/4, hymba
-    # 25/5): pad-shard Q heads, replicate the small K/V
-    q = shard_heads(q, 2)
-    k = shard(k, "batch", None, None, None)
-    v = shard(v, "batch", None, None, None)
-    return q, k, v
+    * Q sharded by heads over the tp axes, evenly where they divide H; else
+      unevenly (e.g. 36, 25, 20 heads on a 16-way axis: each device takes
+      ceil(H / tp) heads, as GSPMD pads them), which repeats the padded
+      heads' share but needs no partial-sum all-reduce of the scores.
+      JAX pads only where K/V are small GQA heads and leaves near-MHA
+      K/V (musicgen 24/24, qwen1.5 20/20) to GSPMD's propagation; the
+      port pads those the same way;
+    * K/V sharded the same way where each device's query heads read only
+      its own K/V heads (the tp axes divide KH, or MHA's K/V heads
+      chunked as Q's), else replicated over the tp axes (GQA's small K/V,
+      e.g. starcoder2 36/4, hymba 25/5), each device picking the K/V head
+      of each of its query heads (``kv_heads``).
+
+    Each device attends only its own heads (and batch rows: a batch the
+    batch axes do not shard, such as long_500k's 1, repeats there, as in
+    GSPMD); the output is sharded as Q."""
+    if not isinstance(q, DTensor):
+        return core(q, k, v, None)
+    H, hd = q.shape[2], q.shape[3]
+    KH = k.shape[2] if k.ndim == 4 else k.shape[2] // hd
+    rep, tp = H // KH, tp_size()
+    own = KH % tp == 0 or (rep == 1 and k.ndim == 4)
+    q0, nq = tp_range(H)
+    k0 = tp_range(KH)[0] if own else 0
+
+    def local(q, k, v):
+        kv_heads = torch.arange(q0, q0 + nq, device=q.device) // rep - k0
+        return core(q, k, v, kv_heads)
+
+    kv_dim = 2 if own else None
+    return on_shards(local, [(q, 2, True), (k, kv_dim, True),
+                             (v, kv_dim, True)], [(q.shape, 2)])
 
 
 def apply_attention(p, x, cfg: ModelConfig, *, positions, causal=True,
@@ -292,7 +315,8 @@ def apply_attention(p, x, cfg: ModelConfig, *, positions, causal=True,
     through the flash kernel (serving), or, when False, through
     ``_online_attention``, the path autograd can differentiate (the
     training stages, as in the JAX package; the kernel has no backward)
-    and the one DTensor takes (the sharded steps).
+    and the one the sharded steps take, on each device's heads
+    (``_attend``).
 
     Returns (out, cache).
     """
@@ -300,15 +324,15 @@ def apply_attention(p, x, cfg: ModelConfig, *, positions, causal=True,
     H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
     src = x if kv_x is None else kv_x
-    q = shard(x @ p["wq"], "batch", None, "tp")
-    k = shard(src @ p["wk"], "batch", None, "tp")
-    v = shard(src @ p["wv"], "batch", None, "tp")
+    q = shard(project(x, p["wq"]), "batch", None, "tp")
+    k = shard(project(src, p["wk"]), "batch", None, "tp")
+    v = shard(project(src, p["wv"]), "batch", None, "tp")
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q, k, v = split_last(q, H), split_last(k, KH), split_last(v, KH)
     if kv_x is None:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        q = locally(lambda t: apply_rope(t, positions, cfg.rope_theta), q)
+        k = locally(lambda t: apply_rope(t, positions, cfg.rope_theta), k)
     elif cache is not None:
         raise ValueError("cross-attention takes no KV cache")
 
@@ -324,27 +348,29 @@ def apply_attention(p, x, cfg: ModelConfig, *, positions, causal=True,
             k, v = _pad_heads(k, KH_eff), _pad_heads(v, KH_eff)
             q = _pad_heads(q, H_eff)
         # copy_ casts K/V to the cache dtype, as JAX's update does
-        cache["k"][:, write_index:write_index + S] = k.reshape(B, S, cache_kvd)
-        cache["v"][:, write_index:write_index + S] = v.reshape(B, S, cache_kvd)
+        cache["k"][:, write_index:write_index + S] = merge_last(k)
+        cache["v"][:, write_index:write_index + S] = merge_last(v)
         if S == 1:
-            out = _decode_attention(q, cache["k"], cache["v"], kv_valid,
-                                    KH_eff, hd)
-        else:
+            out = _attend(lambda q, ck, cv, kv_heads: _decode_attention(
+                q, ck, cv, kv_valid, ck.shape[-1] // hd, hd,
+                kv_heads=kv_heads), q, cache["k"], cache["v"])
+        elif use_kernel:
             # the cache was empty: attend over this step's own K/V
-            q, k, v = _constrain_attention_operands(q, k, v, H_eff, KH_eff)
-            out = (kops.flash_attention(q, k, v, causal=True) if use_kernel
-                   else _online_attention(q, k, v, 0, causal=True, window=None))
+            out = kops.flash_attention(q, k, v, causal=True)
+        else:
+            out = _attend(lambda q, k, v, kv_heads: _online_attention(
+                q, k, v, 0, causal=True, window=None, kv_heads=kv_heads),
+                q, k, v)
         if H_eff > H:
             out = out[:, :, :H]
+    elif causal and use_kernel and kv_x is None:
+        out = kops.flash_attention(q, k, v, causal=True, window=window)
     else:
-        q, k, v = _constrain_attention_operands(q, k, v, H, KH)
-        if causal and use_kernel and kv_x is None:
-            out = kops.flash_attention(q, k, v, causal=True, window=window)
-        else:
-            out = _online_attention(q, k, v, 0, causal=causal and kv_x is None,
-                                    window=window)
+        out = _attend(lambda q, k, v, kv_heads: _online_attention(
+            q, k, v, 0, causal=causal and kv_x is None, window=window,
+            kv_heads=kv_heads), q, k, v)
 
-    return merge_last(out) @ p["wo"], cache
+    return project(merge_last(out), p["wo"]), cache
 
 
 # ---------------------------------------------------------------------------
@@ -361,14 +387,12 @@ def init_embed(generator, cfg: ModelConfig, dtype, device):
 
 
 def embed_tokens(p, tokens):
-    # a DTensor's tokens are replicated first: indexing the (vocab, d)
-    # sharded table with tokens sharded over two mesh axes has no strategy
-    return p["table"][replicated(tokens)]
+    return embed(p["table"], tokens)
 
 
 def lm_logits(p, x, cfg: ModelConfig):
     w = p["table"].T if cfg.tie_embeddings else p["lm_head"]
-    return x @ w
+    return project(x, w)
 
 
 def chunked_xent_loss(embed_p, x, labels, cfg: ModelConfig, chunk: int = 512):
@@ -378,17 +402,26 @@ def chunked_xent_loss(embed_p, x, labels, cfg: ModelConfig, chunk: int = 512):
 
     Autograd keeps each chunk's f32 logits for the backward, where the
     JAX package recomputes them (``jax.checkpoint``); the values are the
-    same."""
+    same.  On DTensors the loss is vocab-parallel where the model axis
+    shards the vocab (each chunk's rows gathered, the logits sharded by
+    vocab); where it does not divide the vocab, the head is replicated
+    there and the chunks are taken from each device's own sequence rows
+    (``seq_blocks``), so that no device multiplies another's rows."""
     B, S, D = x.shape
     w = embed_p["table"].T if cfg.tie_embeddings else embed_p["lm_head"]
-    n = S // chunk if S % chunk == 0 else 1
+    if isinstance(x, DTensor) and dim_shards(w, 1) == 1:
+        k = dim_shards(x, 1)
+        x, labels = seq_blocks(x, k), seq_blocks(labels, k)
+    rows = x.shape[-2]
+    n = rows // chunk if rows % chunk == 0 else 1
     if n == 1:
-        chunk = S
+        chunk = rows
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n):
-        xc, lc = x[:, i * chunk:(i + 1) * chunk], labels[:, i * chunk:(i + 1) * chunk]
-        logits = (xc @ w).float()                            # (B, chunk, V)
-        logz = torch.logsumexp(logits, dim=-1)
+        xc = x[..., i * chunk:(i + 1) * chunk, :]
+        lc = labels[..., i * chunk:(i + 1) * chunk]
+        logits = project(xc, w).float()                # (B, [k,] chunk, V)
+        logz = logsumexp_last(logits)
         gold = gather_last(logits, lc)
         total = total + (logz - gold).sum()
     return total / (B * S)

@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init
-from repro_torch.parallel.sharding import shard
+from repro_torch.parallel.sharding import project, reshape, shard
 
 
 def init_moe(generator, cfg: ModelConfig, dtype, device):
@@ -60,7 +60,7 @@ def _route(p, x, cfg: ModelConfig):
     ``jax.lax.top_k`` breaks ties toward the lower index and
     ``torch.topk`` promises no order among ties; router probabilities
     from continuous inputs do not tie."""
-    logits = x.float() @ p["router"]                        # (T, E)
+    logits = project(x.float(), p["router"])                # (T, E)
     probs = torch.softmax(logits, dim=-1)
     topv, topi = torch.topk(probs, cfg.num_experts_per_tok, dim=-1)
     topv = topv / topv.sum(dim=-1, keepdim=True)            # renormalise
@@ -76,10 +76,10 @@ def _expert_mlp_dense(p, x, combine, cfg: ModelConfig):
     cw = combine.T.to(x.dtype)                              # (E, T)
     out = torch.zeros_like(x)
     for e in range(cfg.num_experts):
-        g = shard(x @ p["w_gate"][e], "batch", "tp")
-        h = _act(g, cfg) * (x @ p["w_up"][e])                    # (T, F)
+        g = shard(project(x, p["w_gate"][e]), "batch", "tp")
+        h = _act(g, cfg) * project(x, p["w_up"][e])              # (T, F)
         h = h * cw[e][:, None].to(h.dtype)
-        out = out + h @ p["w_down"][e]
+        out = out + project(h, p["w_down"][e])
     return out
 
 
@@ -153,7 +153,7 @@ def apply_moe(p, x, cfg: ModelConfig, impl: str = "dense"):
     surrounding block re-applies the sequence-parallel constraint."""
     x = shard(x, "batch", None, None)
     B, S, D = x.shape
-    xt = x.reshape(B * S, D)
+    xt = reshape(x, B * S, D)
     combine, topi, topv, aux = _route(p, xt, cfg)
     if impl == "ragged":
         out = _expert_mlp_ragged(p, xt, topi, topv, cfg)
@@ -165,5 +165,6 @@ def apply_moe(p, x, cfg: ModelConfig, impl: str = "dense"):
         raise ValueError(f"moe impl {impl!r}: dense, ragged or capacity")
     if cfg.num_shared_experts:
         sp = p["shared"]
-        out = out + (_act(xt @ sp["w_gate"], cfg) * (xt @ sp["w_up"])) @ sp["w_down"]
-    return out.reshape(B, S, D), aux
+        out = out + project(_act(project(xt, sp["w_gate"]), cfg)
+                            * project(xt, sp["w_up"]), sp["w_down"])
+    return reshape(out, B, S, D), aux

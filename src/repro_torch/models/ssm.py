@@ -22,11 +22,14 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import chunk_products, ssd_chunked
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init
-from repro_torch.parallel.sharding import dot_last, merge_last, split_last
+from repro_torch.parallel.sharding import (merge_last, on_shards, project,
+                                           shard, split_last, tp_range)
 
 
 # ---------------------------------------------------------------------------
@@ -38,7 +41,7 @@ def ssd_decode_step(h, xt, dtt, A, Bt, Ct):
     a = torch.exp(dtt * A)
     h = (a[..., None, None] * h
          + (dtt[..., None] * xt)[..., None] * Bt[:, None, None, :])
-    y = dot_last(h, Ct)
+    y = torch.einsum("bhpn,bn->bhp", h, Ct)
     return h, y
 
 
@@ -83,6 +86,38 @@ def _causal_conv(x, w, b, state=None):
     return y, new_state
 
 
+def _scan_on_shards(xh, dt, A, Bc, Cc, h0):
+    """``ssd_scan_plain`` of DTensors, on each device's heads (sharded over
+    the tp axes, unevenly where they do not divide H, as GSPMD pads).  C Bᵀ,
+    shared by all heads, is computed once: each device its rows of each
+    chunk, then gathered; the scan's other products are per head."""
+    b, S, H, P = xh.shape
+    chunk = kops.ssd_chunk(S)
+    rows = tp_range(chunk)
+    CB = on_shards(lambda B, C: chunk_products(B, C, chunk, rows),
+                   [(Bc, None, True), (Cc, None, True)],
+                   [((b, S // chunk, chunk, chunk), 2)])
+    CB = shard(CB, "batch", None, None, None)
+    return on_shards(
+        lambda x, dt, A, CB, B, C, h0: ssd_chunked(x, dt, A, B, C, h0=h0,
+                                                   chunk=chunk, CB=CB),
+        [(xh, 2, True), (dt, 2, True), (A, 0, False), (CB, None, True),
+         (Bc, None, True), (Cc, None, True), (h0, 1, True)],
+        [(xh.shape, 2), ((b, H, P, Bc.shape[-1]), 1)])
+
+
+def _decode_on_shards(h, xt, dtt, A, Bt, Ct):
+    """``ssd_decode_step`` on each device's heads; returns ``(h, y[:,
+    None])``."""
+    def step(h, xt, dtt, A, Bt, Ct):
+        h, y = ssd_decode_step(h, xt, dtt, A, Bt, Ct)
+        return h, y[:, None]
+    b, H, P, _ = h.shape
+    return on_shards(step, [(h, 1, True), (xt, 1, True), (dtt, 1, True),
+                            (A, 0, False), (Bt, None, True), (Ct, None, True)],
+                     [(h.shape, 1), ((b, 1, H, P), 2)])
+
+
 def apply_mamba(p, x, cfg: ModelConfig, *, cache=None, use_kernel: bool = True):
     """x: (B, S, D). cache: dict(conv=(B,K-1,conv_dim), ssm=(B,H,P,N)) or None.
 
@@ -90,17 +125,28 @@ def apply_mamba(p, x, cfg: ModelConfig, *, cache=None, use_kernel: bool = True):
     model's stacked cache) and returned.  Returns (out, cache).
     ``use_kernel=False`` (the training stages) scans with the plain
     version, which autograd differentiates: the kernel has no backward.
+
+    On DTensors (the sharded steps): ``in_proj``'s output, sharded over the
+    tp axes by columns that do not fall on the [z, x, B, C, dt] split, is
+    gathered there; the causal conv runs on each device's channels; the
+    SSD scan and the decode update on each device's heads, B and C
+    (shared by the heads) replicated; the gated norm on the heads' shards.
     """
     B_, S, _ = x.shape
     di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     P = di // H
 
-    z, xs, Bc, Cc, dt = torch.split(x @ p["in_proj"], [di, di, N, N, H], dim=-1)
+    zxbcdt = shard(project(x, p["in_proj"]), "batch", None, None)
+    z, xs, Bc, Cc, dt = torch.split(zxbcdt, [di, di, N, N, H], dim=-1)
 
     conv_in = torch.cat([xs, Bc, Cc], dim=-1)
     conv_state = cache["conv"] if cache is not None else None
-    conv_out, new_conv = _causal_conv(conv_in, p["conv_w"], p["conv_b"], conv_state)
-    conv_out = F.silu(conv_out)
+    K = p["conv_w"].shape[0]
+    conv_out, new_conv = on_shards(
+        _causal_conv, [(conv_in, 2, True), (p["conv_w"], 1, False),
+                       (p["conv_b"], 0, False), (conv_state, 2, True)],
+        [(conv_in.shape, 2), ((B_, K - 1, conv_in.shape[2]), 2)])
+    conv_out = shard(F.silu(conv_out), "batch", None, None)
     xs, Bc, Cc = torch.split(conv_out, [di, N, N], dim=-1)
 
     dt = F.softplus(dt.float() + p["dt_bias"])                     # (B,S,H)
@@ -108,12 +154,13 @@ def apply_mamba(p, x, cfg: ModelConfig, *, cache=None, use_kernel: bool = True):
     xh = split_last(xs, H)                          # a strided view of conv_out
 
     if cache is not None and S == 1:
-        h, y = ssd_decode_step(cache["ssm"], xh[:, 0].float(), dt[:, 0], A,
-                               Bc[:, 0].float(), Cc[:, 0].float())
-        y = y[:, None].to(x.dtype)                                  # (B,1,H,P)
+        h, y = _decode_on_shards(cache["ssm"], xh[:, 0].float(), dt[:, 0], A,
+                                 Bc[:, 0].float(), Cc[:, 0].float())
+        y = y.to(x.dtype)                                           # (B,1,H,P)
     else:
         h0 = cache["ssm"] if cache is not None else None
-        scan = kops.ssd_scan if use_kernel else kops.ssd_scan_plain
+        scan = (_scan_on_shards if isinstance(xh, DTensor) else
+                kops.ssd_scan if use_kernel else kops.ssd_scan_plain)
         y, h = scan(xh, dt, A, Bc, Cc, h0=h0)
     if cache is not None:
         cache["conv"].copy_(new_conv)
@@ -125,7 +172,7 @@ def apply_mamba(p, x, cfg: ModelConfig, *, cache=None, use_kernel: bool = True):
     g = y * F.silu(z.float())
     ms = g.square().mean(dim=-1, keepdim=True)
     g = g * torch.rsqrt(ms + 1e-6) * p["norm_scale"]
-    return g.to(x.dtype) @ p["out_proj"], cache
+    return project(g.to(x.dtype), p["out_proj"]), cache
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, dtype=torch.float32, *,

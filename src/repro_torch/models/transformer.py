@@ -46,7 +46,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
-from repro_torch.parallel.sharding import shard
+from repro_torch.parallel.sharding import project, shard
 from repro_torch.tree import flatten, tree_map, unflatten
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -379,7 +379,7 @@ def forward_hidden(model, cfg: ModelConfig, *, tokens=None, embeds=None,
 
     aux = 0.0
     if is_vlm(cfg):
-        vis = (vision.to(x.dtype) @ model.vision_proj["w_proj"]
+        vis = (project(vision.to(x.dtype), model.vision_proj["w_proj"])
                if vision is not None else None)
 
         def superblock(x, i):

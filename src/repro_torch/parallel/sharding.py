@@ -18,7 +18,7 @@ order, which is the tuple's order only when the tuple follows the mesh
 Where an annotation is active and ``x`` is a DTensor, ``shard``
 redistributes it to the spec, dropping mesh axes that do not divide the
 dim as the JAX package does (DTensor would shard unevenly instead);
-``shard_heads`` alone allows an uneven head count.
+``on_shards`` alone shards heads unevenly, as GSPMD pads them.
 
 Physical axes of the production mesh (see launch/mesh.py):
   * ``pod``   — outer data-parallel axis across pods (multi-pod only)
@@ -28,24 +28,33 @@ Physical axes of the production mesh (see launch/mesh.py):
 from __future__ import annotations
 
 import contextlib
-import threading
-from collections import Counter
 from dataclasses import dataclass
 from typing import Optional, Tuple, Union
 
 import torch
-from torch.distributed.tensor import (DTensor, Replicate, Shard,
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils import _pytree as pytree
-from torch.utils._pytree import tree_map_only
 
 from repro_torch.launch.mesh import mesh_axis_sizes
 from repro_torch.tree import tree_map, tree_map_with_path
 
 AxisName = Union[str, Tuple[str, ...], None]
 
-_state = threading.local()
+
+class _State:
+    """The active rules and mesh, process-wide, not per thread as JAX's:
+    the autograd engine runs a CUDA backward, and the recompute of a
+    checkpointed layer in it, on a device thread of its own, which must lay
+    out the layer as the forward did."""
+    rules: Optional["ShardingRules"] = None
+    mesh = None
+
+
+_state = _State()
 
 
 @dataclass(frozen=True)
@@ -107,7 +116,7 @@ P = PartitionSpec
 
 @contextlib.contextmanager
 def use_rules(rules: Optional[ShardingRules], mesh=None):
-    prev = getattr(_state, "rules", None), getattr(_state, "mesh", None)
+    prev = _state.rules, _state.mesh
     _state.rules, _state.mesh = rules, mesh
     try:
         yield
@@ -116,11 +125,11 @@ def use_rules(rules: Optional[ShardingRules], mesh=None):
 
 
 def active_rules():
-    return getattr(_state, "rules", None)
+    return _state.rules
 
 
 def active_mesh():
-    return getattr(_state, "mesh", None)
+    return _state.mesh
 
 
 def logical_spec(*logical_axes: AxisName) -> Optional[P]:
@@ -163,43 +172,274 @@ def _constrain(x, spec: P):
     return x.redistribute(x.device_mesh, want)
 
 
+# ---------------------------------------------------------------------------
+# Work laid out by hand: each device's share, computed on its local shards
+# ---------------------------------------------------------------------------
+#
+# DTensor lays out an op by its own sharding strategies, which differ
+# between torch versions: one refuses views that another takes (a merge of
+# a sharded dim, the views inside ``einsum`` and ``matmul``), and where one
+# has no strategy or takes a strided layout, the op runs on replicated
+# inputs, each device computing all of it.  GSPMD lays each op out from
+# the constraints around it.  So the ops that carry the step's work run on
+# local shards under placements chosen here, as GSPMD chooses them: the
+# projections (``project``), the splits and merges of heads
+# (``split_last``, ``merge_last``) and each per-(batch, head) core
+# (``on_shards``: attention, the SSD scan).  Their inputs are
+# redistributed first and their outputs wrapped back as DTensors, both
+# through autograd, so the backward runs each product in the forward's
+# layout.  A plain tensor goes through each of them untouched.
+
+def _dims_of(logical: str, mesh) -> Tuple[int, ...]:
+    """The mesh dims the active rules give ``logical`` (``batch``, ``tp``)."""
+    rules, names = active_rules(), list(mesh.mesh_dim_names)
+    if rules is None:
+        return ()
+    return tuple(names.index(a) for a in _names(rules.resolve(logical))
+                 if a in names)
+
+
+def _global(local, mesh, pl, shape):
+    """``local`` as the shard of a DTensor of ``shape`` under ``pl``."""
+    shape = tuple(shape)
+    return DTensor.from_local(local, mesh, pl, run_check=False,
+                              shape=torch.Size(shape), stride=_contiguous(shape))
+
+
+def tp_range(size: int) -> Tuple[int, int]:
+    """``(offset, count)``: this rank's chunk of a dim of ``size`` (heads)
+    sharded over the tp axes as DTensor's ``Shard`` lays it (chunks of
+    ceil(size / shards), the last ones short or empty, where GSPMD pads
+    every chunk to that size); all of it off a mesh."""
+    mesh = active_mesh()
+    if mesh is None or active_rules() is None:
+        return 0, size
+    tdims = _dims_of("tp", mesh)
+    pl = [Shard(0) if i in tdims else Replicate() for i in range(mesh.ndim)]
+    shape, offset = compute_local_shape_and_global_offset((size,), mesh, pl)
+    return offset[0], shape[0]
+
+
+def _unpartial(x):
+    """``x`` with its partial sums reduced (a plain tensor as it is)."""
+    if isinstance(x, DTensor) and any(p.is_partial() for p in x.placements):
+        return x.redistribute(x.device_mesh, [
+            Replicate() if p.is_partial() else p for p in x.placements])
+    return x
+
+
+def _gather(x, dim: int):
+    """``x`` replicated along the mesh dims that shard ``dim``."""
+    if any(p.is_shard(dim) for p in x.placements):
+        x = x.redistribute(x.device_mesh, [
+            Replicate() if p.is_shard(dim) else p for p in x.placements])
+    return x
+
+
+def _view(x, shape):
+    """``x.reshape(shape)`` on each device's shard, the placements kept:
+    the caller has made the sharded dims whole blocks of the new shape."""
+    local = x.to_local().reshape(
+        compute_local_shape_and_global_offset(shape, x.device_mesh,
+                                              x.placements)[0])
+    return _global(local, x.device_mesh, x.placements, shape)
+
+
+def dim_shards(x, d: int) -> int:
+    """How many shards dim ``d`` of ``x`` is split into (1: a plain
+    tensor, or a dim no mesh dim shards)."""
+    n = 1
+    if isinstance(x, DTensor):
+        for size, pl in zip(x.device_mesh.shape, x.placements):
+            n *= size if pl.is_shard(d) else 1
+    return n
+
+
+def seq_blocks(x, k: int):
+    """``x`` (B, S, ...) as (B, k, S / k, ...).  A DTensor whose dim 1 is
+    sharded in ``k`` shards has each device's shard as one block, so that
+    slicing a block's rows gathers nothing."""
+    shape = (x.shape[0], k, x.shape[1] // k, *x.shape[2:])
+    if not isinstance(x, DTensor):
+        return x.reshape(shape)
+    return _view(x, shape)
+
+
+def reshape(x, *shape):
+    """``x.reshape(shape)`` where dim 0 (the batch) stays the outermost dim,
+    merged with the dims after it or split from them.  A DTensor keeps dim
+    0's sharding and has its other sharded dims gathered first."""
+    if not isinstance(x, DTensor):
+        return x.reshape(shape)
+    for d in range(1, x.ndim):
+        x = _gather(x, d)
+    return _view(x, shape)
+
+
 def split_last(x, n: int):
     """``x`` with its last dim split into ``(n, last // n)``.  A DTensor
-    whose last dim is sharded over mesh axes that do not divide ``n`` is
-    replicated along them first, so that no dim is sharded unevenly (a
-    view of such a dim is refused or mis-laid by DTensor, where GSPMD
-    reshards the dim)."""
-    if isinstance(x, DTensor):
-        d, over = x.ndim - 1, 1
-        for size, pl in zip(x.device_mesh.shape, x.placements):
-            over *= size if pl.is_shard(d) else 1
-        if n % over:
-            x = x.redistribute(x.device_mesh, [
-                Replicate() if pl.is_shard(d) else pl for pl in x.placements])
-    return x.reshape(*x.shape[:-1], n, x.shape[-1] // n)
+    sharded on its last dim keeps that sharding on the ``n`` dim where its
+    shards divide ``n``, and is gathered first where they do not (heads
+    the model axis does not divide)."""
+    shape = (*x.shape[:-1], n, x.shape[-1] // n)
+    if not isinstance(x, DTensor):
+        return x.reshape(shape)
+    if n % dim_shards(x, x.ndim - 1):
+        x = _gather(x, x.ndim - 1)
+    return _view(x, shape)
 
 
 def merge_last(x):
-    """``x`` with its last two dims merged.  A DTensor sharded on the inner
-    of the two is replicated along it first: the merged dim would be
-    sharded with a stride, which one torch version refuses and another
-    carries into slow redistribution plans."""
-    if isinstance(x, DTensor) and any(pl.is_shard(x.ndim - 1)
-                                      for pl in x.placements):
-        x = x.redistribute(x.device_mesh, [
-            Replicate() if pl.is_shard(x.ndim - 1) else pl
-            for pl in x.placements])
-    return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+    """``x`` with its last two dims merged.  A DTensor sharded evenly on the
+    outer of the two keeps that sharding on the merged dim; one sharded on
+    the inner, or unevenly (padded heads), is gathered first."""
+    shape = (*x.shape[:-2], x.shape[-2] * x.shape[-1])
+    if not isinstance(x, DTensor):
+        return x.reshape(shape)
+    x = _gather(x, x.ndim - 1)
+    if x.shape[-2] % dim_shards(x, x.ndim - 2):
+        x = _gather(x, x.ndim - 2)
+    return _view(x, shape)
 
 
-def dot_last(a, b):
-    """``torch.einsum("bhpn,bn->bhp", a, b)``; on DTensors a product and a
-    sum over n, which keeps a's layout (the einsum flattens (h, p) for a
-    batched product and shards the merged dim with a stride), and which
-    the trace counts as no dot FLOPs."""
-    if isinstance(a, DTensor):
-        return (a * b[:, None, None, :]).sum(-1)
-    return torch.einsum("bhpn,bn->bhp", a, b)
+def project(x, w):
+    """``x @ w`` for ``x`` (..., K) and a 2-D weight ``w`` (K, N), laid out
+    as GSPMD lays out a projection, mesh dim by mesh dim:
+
+    * ``x`` sharded on its batch dim: the weight is gathered there (FSDP);
+    * the weight sharded on N (column-parallel): ``x`` is gathered there
+      (a sequence-sharded residual's all-gather), the output sharded on N;
+    * the weight sharded on K (row-parallel): ``x`` sharded on K to match,
+      the output a partial sum;
+    * a replicated weight: ``x`` keeps a sharded leading dim (a sequence
+      shard), else the product repeats on every device there, as GSPMD
+      repeats it (a vocab the model axis does not divide in a decode's lm
+      head; the VLM's vision projection, whose weight has no model-axis
+      dim).
+
+    Each device multiplies its shards; the gradients come back in the
+    same layout (the weight's reduce-scattered over the batch axes)."""
+    if not isinstance(x, DTensor) and not isinstance(w, DTensor):
+        return x @ w
+    mesh = (x if isinstance(x, DTensor) else w).device_mesh
+    x, w = (_unpartial(t) if isinstance(t, DTensor) else DTensor.from_local(
+        t, mesh, [Replicate()] * mesh.ndim, run_check=False) for t in (x, w))
+    n = x.ndim
+    xs, ws, outs, gxs, gws = [], [], [], [], []
+    for px, pw in zip(x.placements, w.placements):
+        lead = px.is_shard() and px.dim < n - 1
+        if lead and px.dim == 0:                     # batch: gather the weight
+            row = (px, Replicate(), px, px, Partial())
+        elif pw.is_shard(1):                         # column-parallel
+            row = (Replicate(), pw, Shard(n - 1), Partial(), pw)
+        elif pw.is_shard(0):                         # row-parallel
+            row = (Shard(n - 1), pw, Partial(), Shard(n - 1), pw)
+        elif lead:                                   # a sequence shard
+            row = (px, Replicate(), px, px, Partial())
+        else:
+            row = (Replicate(),) * 5
+        for acc, v in zip((xs, ws, outs, gxs, gws), row):
+            acc.append(v)
+    xl = x.redistribute(mesh, xs).to_local(grad_placements=gxs)
+    wl = w.redistribute(mesh, ws).to_local(grad_placements=gws)
+    return _global(xl @ wl, mesh, outs, (*x.shape[:-1], w.shape[1]))
+
+
+def embed(table, tokens):
+    """``table[tokens]``, the embedding lookup.  On DTensors a
+    vocab-parallel lookup, as GSPMD lays out JAX's: the table gathered over
+    the axes that shard its width (FSDP), each device looking up the
+    tokens of its own vocab shard and zeroing the rest, the result a
+    partial sum over the axes that shard the vocab; the tokens keep their
+    batch shard."""
+    if not isinstance(table, DTensor):
+        return table[tokens]
+    mesh = table.device_mesh
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    tpl, kpl, outs, grads = [], [], [], []
+    for pt, pk in zip(table.placements, tokens.placements):
+        if pt.is_shard(0):                           # the vocab
+            row = (pt, Replicate(), Partial(), pt)
+        elif pk.is_shard(0):                         # the batch
+            row = (Replicate(), pk, pk, Partial())
+        else:
+            row = (Replicate(),) * 4
+        for acc, v in zip((tpl, kpl, outs, grads), row):
+            acc.append(v)
+    rows = table.redistribute(mesh, tpl).to_local(grad_placements=grads)
+    ids = tokens.redistribute(mesh, kpl).to_local()
+    (n, _), (v0, _) = compute_local_shape_and_global_offset(
+        table.shape, mesh, tpl)
+    mine = (ids >= v0) & (ids < v0 + n)
+    out = rows[torch.where(mine, ids - v0, 0)] * mine[..., None].to(rows.dtype)
+    return _global(out, mesh, outs, (*tokens.shape, table.shape[1]))
+
+
+def on_shards(fn, inputs, outputs):
+    """``fn`` on each device's share of a computation that is independent
+    along the batch dim and along one dim of each tensor (heads, or query
+    rows) that the tp axes shard: ``fn(*locals)`` with the local shards,
+    the results wrapped back as DTensors.
+
+    ``inputs``: ``(value, tp_dim, batched)`` each.  A DTensor is laid out
+    with its dim 0 sharded over the batch axes where any batched input is
+    sharded there (``batched``: its dim 0 is the batch), and ``tp_dim``
+    sharded over the tp axes (``None``: replicated there); anything else
+    is passed as it is.  Where no batched input is sharded over a batch
+    axis (a batch of 1), the computation repeats there, as in GSPMD.  ``outputs``: ``(global shape, tp_dim)`` for each
+    tensor ``fn`` returns, laid out the same way.  The computation is
+    sharded over the tp axes where any input or output names a ``tp_dim``;
+    ``fn`` must then compute only its share: an input replicated over axes
+    the computation is sharded over gets a gradient that is a partial sum
+    there.  Without a DTensor among the inputs, ``fn(*values)``."""
+    values = [v for v, *_ in inputs]
+    tensors = [v for v in values if isinstance(v, DTensor)]
+    if not tensors:
+        return fn(*values)
+    mesh = tensors[0].device_mesh
+    bdims, tdims = _dims_of("batch", mesh), _dims_of("tp", mesh)
+    sharded_b = {i for i in bdims for v, _, b in inputs
+                 if b and isinstance(v, DTensor) and v.placements[i].is_shard(0)}
+    sharded_t = bool(tdims) and (
+        any(isinstance(v, DTensor) and t is not None for v, t, _ in inputs)
+        or any(t is not None for _, t in outputs))
+
+    def layout(tp_dim, batched, grad):
+        pl = []
+        for i in range(mesh.ndim):
+            if i in sharded_b:
+                pl.append(Shard(0) if batched else
+                          (Partial() if grad else Replicate()))
+            elif i in tdims and tp_dim is not None:
+                pl.append(Shard(tp_dim))
+            elif i in tdims and sharded_t and grad:
+                pl.append(Partial())
+            else:
+                pl.append(Replicate())
+        return pl
+
+    local = []
+    for v, tp_dim, batched in inputs:
+        if isinstance(v, DTensor):
+            v = _unpartial(v).redistribute(mesh, layout(tp_dim, batched, False))
+            v = v.to_local(grad_placements=layout(tp_dim, batched, True))
+        local.append(v)
+    out = fn(*local)
+    single = isinstance(out, torch.Tensor)
+    outs = [_global(o, mesh, layout(tp_dim, True, False), shape)
+            for o, (shape, tp_dim) in zip([out] if single else out, outputs)]
+    return outs[0] if single else tuple(outs)
+
+
+def locally(fn, x):
+    """``fn(x)`` on each device's shard, ``x``'s layout kept: for an ``fn``
+    that acts on each index of ``x``'s sharded dims alone and keeps its
+    shape (RoPE on heads sharded over tp)."""
+    if not isinstance(x, DTensor):
+        return fn(x)
+    return _global(fn(x.to_local()), x.device_mesh, x.placements, x.shape)
 
 
 def gather_last(x, index):
@@ -210,8 +450,25 @@ def gather_last(x, index):
     the same, one term and zeros."""
     if not isinstance(x, DTensor):
         return x.gather(-1, index[..., None].long())[..., 0]
-    ids = torch.arange(x.shape[-1], device=index.device)
+    # the vocab ids laid out as x's last dim, so that the mask is built
+    # on each device's vocab shard and nothing is gathered
+    ids = distribute_tensor(
+        torch.arange(x.shape[-1], device=x.to_local().device), x.device_mesh,
+        [Shard(0) if p.is_shard(x.ndim - 1) else Replicate()
+         for p in x.placements], src_data_rank=None)
     return torch.where(ids == index[..., None], x, 0.0).sum(-1)
+
+
+def logsumexp_last(x):
+    """``torch.logsumexp(x, dim=-1)``.  On a DTensor sharded on its last
+    dim (a vocab-parallel cross-entropy), each device reduces its shard:
+    an all-reduce of the max and one of the sum, one value a row, where
+    DTensor's ``logsumexp`` gathers the whole last dim.  An unsharded last
+    dim takes ``torch.logsumexp``, bit for bit."""
+    if dim_shards(x, x.ndim - 1) == 1:
+        return torch.logsumexp(x, dim=-1)
+    m = x.detach().amax(dim=-1, keepdim=True)
+    return (m + torch.exp(x - m).sum(dim=-1, keepdim=True).log())[..., 0]
 
 
 def replicated(x):
@@ -221,78 +478,25 @@ def replicated(x):
     return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
 
 
-def _keep_dim0(x):
-    """``x`` with only its placements on dim 0 (the batch) kept."""
-    return x.redistribute(x.device_mesh, [
-        p if p.is_shard(0) else Replicate() for p in x.placements])
-
-
-def _locally(func, args, kwargs):
-    """``func`` on the local tensors of its replicated DTensor inputs (made
-    contiguous: a gathered shard may be a narrowed view of a padded
-    buffer), the results replicated DTensors: any op, each device
-    computing all of it."""
-    mesh = next(x.device_mesh for x in pytree.tree_leaves((args, kwargs))
-                if isinstance(x, DTensor))
-    local = lambda x: replicated(x).to_local().contiguous()  # noqa: E731
-    out = func(*tree_map_only(DTensor, local, args),
-               **tree_map_only(DTensor, local, kwargs))
-    return tree_map_only(torch.Tensor, lambda t: DTensor.from_local(
-        t, mesh, [Replicate()] * mesh.ndim, run_check=False), out)
-
-
-# op name -> how many times ReplicateOnFailure retried it
-FALLBACKS: Counter = Counter()
-
-
-class ReplicateOnFailure(TorchDispatchMode):
-    """Runs each op on DTensors as DTensor lays it out; where DTensor
-    refuses it (no sharding strategy, a view it cannot take on that
-    layout, a redistribution it cannot plan), runs it again on
-    redistributed inputs: first on their dim-0 (batch) shards alone, then
-    fully replicated, then, for an op DTensor has no strategy for at all,
-    on the replicated inputs' local tensors.  GSPMD would reshard there
-    too; the collectives a retry adds are counted like any other.  A
-    mutated input (an in-place op's target) is never redistributed.
-    ``FALLBACKS`` counts the ops retried, by name: what DTensor refuses
-    differs between torch versions."""
+class NameRefusals(TorchDispatchMode):
+    """Runs each op as it is; where an op on DTensors fails (DTensor has
+    no strategy for it, or cannot take a view on that layout), raises an
+    error that names the op and its inputs' placements.  Nothing is
+    retried: a refused op of a sharded step is a fault of the step's
+    layout, not a reason to run the op on replicated inputs."""
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         try:
             return func(*args, **kwargs)
-        except Exception as first:       # noqa: BLE001 — retried below
+        except Exception as e:
             if not any(issubclass(t, DTensor) for t in types):
                 raise
-            names = [a.name for a in func._schema.arguments]
-            written = {a.name for a in func._schema.arguments
-                       if a.alias_info is not None and a.alias_info.is_write}
-
-            def moved(step):
-                def move(x):
-                    return step(x) if isinstance(x, DTensor) else x
-                a2 = [x if i < len(names) and names[i] in written
-                      else tree_map_only(DTensor, move, x)
-                      for i, x in enumerate(args)]
-                k2 = {k: v if k in written else tree_map_only(DTensor, move, v)
-                      for k, v in kwargs.items()}
-                return a2, k2
-
-            for step in (_keep_dim0, replicated, None):
-                if step is None and written:
-                    break
-                try:
-                    if step is None:
-                        out = _locally(func, args, kwargs)
-                    else:
-                        a2, k2 = moved(step)
-                        out = func(*a2, **k2)
-                except Exception as e:   # noqa: BLE001 — the next attempt
-                    first.add_note(f"retry: {type(e).__name__}: {e}"[:500])
-                    continue
-                FALLBACKS[str(func.overloadpacket)] += 1
-                return out
-            raise first
+            layouts = [tuple(x.placements) for x in
+                       pytree.tree_leaves((args, kwargs))
+                       if isinstance(x, DTensor)]
+            raise RuntimeError(f"DTensor refused {func} on placements "
+                               f"{layouts}: {type(e).__name__}: {e}") from e
 
 
 def shard(x, *logical_axes: AxisName):
@@ -402,28 +606,6 @@ def param_spec_tree(params, rules: ShardingRules, mesh):
         return P(*spec)
 
     return tree_map_with_path(spec_for, params)
-
-
-def shard_heads(x, head_dim_index: int):
-    """Shard the heads dim over the tp axis, allowing uneven head counts
-    (DTensor's ``Shard`` pads as GSPMD does).  Used for train/prefill
-    attention where K/V stay replicated (GQA K/V are small) so Q.K^T needs
-    no partial-sum all-reduce — the alternative (sharding head_dim) turns
-    every score tensor into a giant all-reduce."""
-    rules = active_rules()
-    mesh = active_mesh()
-    if rules is None or mesh is None or not isinstance(x, DTensor):
-        return x
-    sizes = mesh_axis_sizes(mesh)
-    r = rules.resolve("tp")
-    if r is None:
-        return x
-    axes = tuple(ax for ax in _names(r) if ax in sizes)
-    if not axes:
-        return x
-    spec = [None] * x.ndim
-    spec[head_dim_index] = axes[0] if len(axes) == 1 else axes
-    return _constrain(x, P(*spec))
 
 
 def tp_size() -> int:

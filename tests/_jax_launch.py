@@ -4,9 +4,11 @@ Run as a script, in its own process: ``repro.launch.dryrun`` forces 512
 host CPU devices before JAX starts, which a test process (JAX already
 started with one device) cannot do.  ``python tests/_jax_launch.py
 <part>`` prints one JSON object: the spec trees (``sharding``), the input
-specs, parameter shapes and analytic memory (``specs``), or a reduced
+specs, parameter shapes and analytic memory (``specs``), a reduced
 train step's HLO dot FLOPs on a (2, 4) mesh and the layout order of a
-dim sharded over ("pod", "data") (``dryrun``).  Trees are flattened to
+dim sharded over ("pod", "data") (``dryrun``), or the per-device HLO dot
+FLOPs of reduced train, prefill and decode steps on that mesh, a JSON
+list of cases in one process (``steps``).  Trees are flattened to
 ``{"a/b/c": leaf}``, a spec to a list of its entries.
 """
 import json
@@ -176,9 +178,68 @@ def part_dryrun(arch: str, d_model: int, layers: int, batch: int, seq: int):
                      for d, s in rows.items()}}
 
 
+def part_steps(cases_json: str):
+    """``[{"key", "arch", "kind", "batch", "seq", "d_model", "layers",
+    "override"}]`` -> ``{key: per-device dot FLOPs}``: each case's config
+    reduced to ``layers`` x ``d_model`` in bf16, ``override``'s fields
+    replaced after (``dataclasses.replace``), its step lowered on a (2, 4)
+    ("data", "model") mesh of 8 host devices with ``dryrun.run_one``'s
+    rules and shardings (a train step at ``grad_accum`` 1; a prefill into a
+    cache of ``seq``; a decode at the last slot of a cache of ``seq``)."""
+    import dataclasses
+    from repro.launch.hlo_analysis import analyze_hlo
+    from repro.models.config import InputShape
+    devices = np.array(jax.devices()[:8])
+    mesh = Mesh(devices.reshape(2, 4), ("data", "model"))
+    out = {}
+    for case in json.loads(cases_json):
+        cfg = dataclasses.replace(
+            get_config(case["arch"]).reduced(num_layers=case["layers"],
+                                             d_model=case["d_model"]),
+            param_dtype="bfloat16")
+        cfg = dataclasses.replace(cfg, **case.get("override", {}))
+        shape = InputShape("case", case["seq"], case["batch"], case["kind"])
+        rules = rules_for(shape)
+        params = jspecs.abstract_params(cfg)
+        donate = ()
+        if shape.kind == "train":
+            opt = AdamW()
+            opt_abs = jax.eval_shape(opt.init, params)
+            batch = jspecs.train_batch_specs(cfg, shape)
+            ins, outs = jsteps.train_shardings(cfg, params, opt_abs, batch,
+                                               rules, mesh)
+            step = jsteps.make_train_step(cfg, opt, mesh=mesh, rules=rules)
+            args = (params, opt_abs, batch)
+        elif shape.kind == "prefill":
+            batch = jspecs.prefill_specs(cfg, shape)
+            cache = jax.eval_shape(lambda: init_cache(cfg, shape.global_batch,
+                                                      shape.seq_len))
+            ins, outs = jsteps.serve_shardings(
+                cfg, params, batch, rules, mesh,
+                global_batch=shape.global_batch, cache_abstract=cache)
+            step = jsteps.make_prefill_step(cfg, shape.seq_len, mesh=mesh,
+                                            rules=rules)
+            args = (params, batch)
+        else:
+            batch = jspecs.decode_specs(cfg, shape)
+            ins, outs = jsteps.serve_shardings(
+                cfg, params, batch, rules, mesh,
+                global_batch=shape.global_batch)
+            step = jsteps.make_decode_step(cfg, mesh=mesh, rules=rules)
+            args = (params, batch)
+            donate = (1,)
+        with mesh:
+            compiled = jax.jit(step, in_shardings=ins, out_shardings=outs,
+                               donate_argnums=donate).lower(*args).compile()
+        out[case["key"]] = analyze_hlo(compiled.as_text()).dot_flops
+    return out
+
+
 if __name__ == "__main__":
     part = sys.argv[1]
-    if part == "dryrun":
+    if part == "steps":
+        result = part_steps(sys.argv[2])
+    elif part == "dryrun":
         arch, d, layers, batch, seq = sys.argv[2:7]
         result = part_dryrun(arch, int(d), int(layers), int(batch), int(seq))
     else:

@@ -15,7 +15,8 @@ all-reduce.  The global dot FLOPs of a reduced dense train step on a
 (2, 4) mesh equal JAX's ``analyze_hlo`` per-device count times 8 (JAX's
 lowering, in its own process), less the one lm-head product JAX's
 ``jax.checkpoint`` recomputes in the backward, within 1 %, and so do the
-port's per-device dot FLOPs times 8.  A
+port's per-device dot FLOPs times 8 (the other families, and prefill and
+decode steps, in ``test_torch_dryrun_jax.py``).  A
 world-size-1 ``gloo`` group: the sharded train step on the (1, 1) mesh
 equals the unsharded one bit for bit over 3 steps, f32 and bf16.
 """
@@ -28,13 +29,11 @@ pytest.importorskip("torch")
 
 import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
-from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
 from torch.distributed.device_mesh import init_device_mesh  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.launch import dryrun, specs, steps  # noqa: E402
+from repro_torch.launch import dryrun, steps  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
-from repro_torch.launch.trace_analysis import analyze_step  # noqa: E402
 from repro_torch.launch.train import spmd_params  # noqa: E402
 from repro_torch.models.config import InputShape  # noqa: E402
 from repro_torch.optim.adamw import AdamW  # noqa: E402
@@ -97,17 +96,8 @@ def test_train_dot_flops_equal_jax():
     theirs = jax_part("dryrun", "gwtf-llama-300m", 256, 2, B, S)
     with dryrun.fake_world(8):
         mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
-        rules = ShardingRules(seq="model")
-        params, opt = specs.abstract_params(cfg), AdamW()
-        state = opt.init(params)
-        batch = {k: specs.sds((B, S), "int32") for k in ("tokens", "labels")}
-        (ps, os_, bs), _ = steps.train_shardings(cfg, params, state, batch,
-                                                 rules, mesh)
-        with FakeTensorMode(allow_non_fake_inputs=True):
-            args = (distribute(params, ps, mesh), distribute(state, os_, mesh),
-                    distribute(batch, bs, mesh))
-        _, costs = analyze_step(steps.make_train_step(cfg, opt, mesh=mesh,
-                                                      rules=rules), *args)
+        costs, _ = dryrun._trace(cfg, InputShape("train", S, B, "train"),
+                                 mesh, ShardingRules(seq="model"), "dense", 1)
     recompute = 2 * B * S * cfg.d_model * cfg.vocab_size
     jax_global = theirs["dot_flops"] * theirs["devices"]
     assert abs(costs.global_flops + recompute - jax_global) / jax_global < 0.01
@@ -159,8 +149,8 @@ def test_sharded_step_on_one_rank_equals_the_step(dtype, gloo_world):
 
 def test_depth_extrapolation_equals_the_full_trace():
     """A 4-layer dense train step traced at 1 and 2 layers and extrapolated
-    counts what the 4-layer trace counts: FLOPs, collectives, argument
-    bytes and the ops retried exactly."""
+    counts what the 4-layer trace counts: FLOPs, collectives and argument
+    bytes exactly."""
     cfg = dataclasses.replace(reduced("gemma_7b"), num_layers=4)
     r = dryrun.run_one("gemma_7b", TRAIN, multi_pod=False, device="cpu",
                        cfg=cfg, verbose=False)
@@ -175,4 +165,3 @@ def test_depth_extrapolation_equals_the_full_trace():
     assert r["collective_detail"] == costs.collective_bytes
     assert r["collective_count"] == costs.collective_count
     assert r["memory"]["argument_size"] == arg_bytes
-    assert r["replicated_ops"] == costs.retried

@@ -8,8 +8,9 @@ decode cache padded by ``pad_kv_heads`` and not) equal JAX's, with the
 rules and ``grad_accum`` ``dryrun.run_one`` picks.  JAX runs in its own
 process (``tests/_jax_launch.py``, 512 host devices); the port's meshes
 sit on a fake process group.  Then ``shard`` without rules, the
-placements of a dim over two mesh axes against JAX's device order, and
-the JAX package's ``TestParamSpecs`` cases.
+placements of a dim over two mesh axes against JAX's device order, the
+JAX package's ``TestParamSpecs`` cases, the layout helpers off a mesh,
+and an op DTensor refuses inside a sharded step, which raises.
 """
 import json
 import os
@@ -221,3 +222,37 @@ class TestParamSpecs:
         with fake_world(256):
             big = param_spec_tree(params, ShardingRules(), mesh_of("16x16"))
         assert big["attn"]["wq"] == (None, None, None)   # neither 7 nor 13
+
+
+def test_layout_helpers_pass_plain_tensors_through():
+    """Off a mesh (every path of one card) each helper is the plain op,
+    bit for bit."""
+    from repro_torch.parallel.sharding import (merge_last, on_shards,
+                                               project, reshape, split_last)
+    g = torch.Generator().manual_seed(0)
+    x, w = torch.randn(2, 3, 8, generator=g), torch.randn(8, 5, generator=g)
+    assert torch.equal(project(x, w), x @ w)
+    assert torch.equal(split_last(x, 4), x.reshape(2, 3, 4, 2))
+    assert torch.equal(merge_last(x), x.reshape(2, 24))
+    assert torch.equal(reshape(x, 6, 8), x.reshape(6, 8))
+    assert on_shards(lambda a, b: a + b, [(x, 2, True), (1.5, None, False)],
+                     [(x.shape, 2)]).equal(x + 1.5)
+
+
+def test_a_refused_op_raises_naming_it_and_is_not_retried():
+    """An op DTensor has no strategy for (``aten.renorm``), inside a
+    sharded step's context: the error names the op and its input's
+    placements, and no replicated copy of the op ran."""
+    from torch.distributed.tensor import Shard as S_
+    with fake_world(8):
+        mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
+        x = distribute_tensor(torch.randn(8, 16), mesh, [S_(0), S_(1)],
+                              src_data_rank=None)
+        ran = []
+        with steps._on_mesh(mesh, ShardingRules()):
+            with pytest.raises(RuntimeError,
+                               match=r"aten\.renorm.*Shard\(dim=0\), "
+                                     r"Shard\(dim=1\)") as err:
+                ran.append(torch.renorm(x, 2, 0, 1.0))
+        assert not ran
+        assert "DTensor refused" in str(err.value)
