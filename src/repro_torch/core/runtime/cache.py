@@ -23,7 +23,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, spans
 from repro_torch.core.runtime.stages import init_head_params, init_stage_params
 from repro_torch.models.config import ModelConfig
 from repro_torch.tree import tree_map
@@ -37,12 +37,14 @@ def _generator(*key: int) -> torch.Generator:
 @lru_cache(maxsize=None)
 def _initial_params(cfg: ModelConfig, num_stages: int, seed: int,
                     device: torch.device) -> Tuple[tuple, dict]:
-    stage_p = tuple(
-        tree_map(lambda t: t.to(device),
-                 init_stage_params(cfg, s, num_stages, _generator(seed, s)))
-        for s in range(num_stages))
-    head_p = tree_map(lambda t: t.to(device),
-                      init_head_params(cfg, _generator(seed, 999)))
+    with spans.span("init.params"):
+        stage_p = tuple(
+            tree_map(lambda t: t.to(device),
+                     init_stage_params(cfg, s, num_stages,
+                                       _generator(seed, s)))
+            for s in range(num_stages))
+        head_p = tree_map(lambda t: t.to(device),
+                          init_head_params(cfg, _generator(seed, 999)))
     return stage_p, head_p
 
 

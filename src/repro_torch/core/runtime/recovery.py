@@ -77,6 +77,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
+from repro_torch import spans
 from repro_torch.core.flow.graph import FlowNetwork
 from repro_torch.core.sim.faults import AdversarialPlan
 from repro_torch.core.sim.policies import FaultView, RoutingPolicy
@@ -381,21 +382,24 @@ class RecoveryManager:
                     xin = store.get(s, ev.job)
                 except KeyError:
                     continue
-                stages.forward(s, stage_params[s], xin)
+                with spans.span("replay", stage=s, direction=direction):
+                    stages.forward(s, stage_params[s], xin)
                 continue
             if cotangent is None:
                 continue
             if not remat and store.has_residuals(s, ids):
-                stages.backward_from_residuals(
-                    s, store.residuals(s, ids), cotangent)
+                with spans.span("replay", stage=s, direction=direction):
+                    stages.backward_from_residuals(
+                        s, store.residuals(s, ids), cotangent)
                 continue
             try:
                 xin = store.get(s, ev.job)
             except KeyError:
                 continue
             k = ids.index(ev.job)
-            stages.backward(s, stage_params[s], xin,
-                            cotangent[k * per:(k + 1) * per])
+            with spans.span("replay", stage=s, direction=direction):
+                stages.backward(s, stage_params[s], xin,
+                                cotangent[k * per:(k + 1) * per])
 
     @staticmethod
     def _count_recompute(direction: str, res: Resolution) -> None:

@@ -5,7 +5,12 @@ bookkeeping, chunking, gradient screen, reputation and checkpoint
 cadence, over torch tensors on ``device`` (``cuda`` unless the caller
 asks for the CPU).  Host syncs stay where the JAX package has them: one
 ``float`` of the loss per dispatch chunk, and the gradient screen's copy
-of every per-microbatch gradient to the host.
+of every per-microbatch gradient to the host; besides, each chunk's tokens
+and labels are copied to the device from pageable host memory.
+``IterationResult.host_syncs`` counts these blocking round trips where
+each is made, and ``repro_torch.spans`` marks the iteration's phases
+(``churn``, ``plan``, ``resolve``, ``execute``, ``commit``) and each
+chunk's dispatches.
 
 `RuntimeTrainer` wires the layers together into the paper's iteration
 (Sec. V-E):
@@ -54,7 +59,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, spans
 from repro_torch.checkpoint import store as ckpt
 from repro_torch.core.flow.graph import FlowNetwork, Node
 from repro_torch.core.runtime import cache
@@ -115,10 +120,21 @@ class _WireLink:
         return codec.decode(enc)
 
 
+class HostSyncs:
+    """Blocking host-device round trips of a numeric pass, counted where
+    each is made: a copy of a host array to the device without
+    ``non_blocking``, a read of a device value to the host.  The count is
+    the same on any device."""
+    __slots__ = ("n",)
+
+    def __init__(self) -> None:
+        self.n = 0
+
+
 def _chunk_pass(stages: StageCompute, store: ActivationStore,
                 stage_params: List[Any], head_params, toks, labels,
                 ids: Tuple[int, ...], per: int, *, remat: bool,
-                grad_stage: List[Any],
+                grad_stage: List[Any], syncs: HostSyncs,
                 replay: Optional[Callable] = None,
                 wire: Optional[_WireLink] = None) -> Tuple[float, Any]:
     """One depth-first chunk: embed → per-stage forward (fused residual
@@ -136,14 +152,16 @@ def _chunk_pass(stages: StageCompute, store: ActivationStore,
     included.
     """
     S = len(stage_params)
-    x = stages.embed(head_params, toks)
+    with spans.span("embed"):
+        x = stages.embed(head_params, toks)
     for s in range(S):
         store.put(s, ids, x)
-        if remat:
-            x = stages.forward(s, stage_params[s], x)
-        else:
-            x, resid = stages.forward_fused(s, stage_params[s], x)
-            store.put_residuals(s, ids, resid)
+        with spans.span("stage.fwd", stage=s):
+            if remat:
+                x = stages.forward(s, stage_params[s], x)
+            else:
+                x, resid = stages.forward_fused(s, stage_params[s], x)
+                store.put_residuals(s, ids, resid)
         if replay is not None:
             replay(s, "fwd", ids)
         if wire is not None and s < S - 1:
@@ -151,23 +169,29 @@ def _chunk_pass(stages: StageCompute, store: ActivationStore,
     B = len(ids)
     seq, D = x.shape[1], x.shape[-1]
     h = x.reshape(B, per, seq, D)
-    losses, g_head, g_hidden = stages.head_loss(head_params, h, labels)
+    with spans.span("head_loss"):
+        losses, g_head, g_hidden = stages.head_loss(head_params, h, labels)
     g = g_hidden.reshape(B * per, seq, D)
     for s in reversed(range(S)):
         if replay is not None:
             replay(s, "bwd", ids, g, per)
-        if remat:
-            xin = store.stacked(s, ids)
-            dp, dx = stages.backward(s, stage_params[s], xin, g)
-        else:
-            dp, dx = stages.backward_from_residuals(
-                s, store.residuals(s, ids), g)
-        grad_stage[s] = (dp if grad_stage[s] is None else
-                        tree_map(torch.add, grad_stage[s], dp))
+        with spans.span("stage.bwd", stage=s):
+            if remat:
+                xin = store.stacked(s, ids)
+                dp, dx = stages.backward(s, stage_params[s], xin, g)
+            else:
+                dp, dx = stages.backward_from_residuals(
+                    s, store.residuals(s, ids), g)
+            grad_stage[s] = (dp if grad_stage[s] is None else
+                            tree_map(torch.add, grad_stage[s], dp))
         g = dx
         store.drop(s, ids)
-    g_emb = stages.embed_backward(head_params, toks, g)
-    return float(losses.sum()), tree_map(torch.add, g_head, g_emb)
+    with spans.span("embed.bwd"):
+        g_emb = stages.embed_backward(head_params, toks, g)
+    with spans.span("loss_sync"):
+        loss_sum = float(losses.sum())
+    syncs.n += 1
+    return loss_sum, tree_map(torch.add, g_head, g_emb)
 
 
 @dataclass
@@ -192,15 +216,21 @@ class IterationResult:
     grads_flagged: int = 0        # contributions the gradient screen
                                   # excluded from this update (the jobs
                                   # still count as completed)
+    host_syncs: int = 0           # blocking host-device round trips of
+                                  # the numeric pass (`HostSyncs`)
 
 
-def _batch(mbs: List[dict], device) -> Tuple[torch.Tensor, torch.Tensor]:
+def _batch(mbs: List[dict], device, syncs: HostSyncs
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stacked tokens (B * per, S) and labels (B, per, S) of microbatches,
-    as int64 on ``device``."""
-    toks = np.concatenate([np.asarray(mb["tokens"]) for mb in mbs])
-    labels = np.stack([np.asarray(mb["labels"]) for mb in mbs])
-    return (torch.from_numpy(toks).long().to(device),
-            torch.from_numpy(labels).long().to(device))
+    as int64 on ``device``: two blocking copies from pageable memory."""
+    with spans.span("batch"):
+        toks = np.concatenate([np.asarray(mb["tokens"]) for mb in mbs])
+        labels = np.stack([np.asarray(mb["labels"]) for mb in mbs])
+        out = (torch.from_numpy(toks).long().to(device),
+               torch.from_numpy(labels).long().to(device))
+    syncs.n += 2
+    return out
 
 
 def _chunk_size(cfg, dispatch_chunk: Optional[int], n_mb: int, per: int,
@@ -403,90 +433,101 @@ class RuntimeTrainer:
     # ------------------------------------------------------------------
     def iteration(self, batches_per_data_node: Dict[int, List[dict]]
                   ) -> IterationResult:
-        horizon = 1.0                    # normalized pipeline-flush clock
         it = self.step
-        crash_times = self.churn_model.sample(ChurnContext(
-            net=self.net, rng=self.rng, horizon=horizon,
-            iteration=it, on_rejoin=self._on_rejoin))
-        # adversarial side channel — None for plain fail-stop models,
-        # keeping every defended branch below inert.  Injections are
-        # recorded from the same model outputs the simulator records
-        # from, which is what makes the two layers' timelines
-        # injection-count identical by construction.
-        adv = adversarial_plan(self.churn_model, it)
-        record_injections(self.timeline, it, crash_times, adv)
+        with spans.span("iteration", iteration=it):
+            horizon = 1.0                    # normalized pipeline-flush clock
+            with spans.span("churn"):
+                crash_times = self.churn_model.sample(ChurnContext(
+                    net=self.net, rng=self.rng, horizon=horizon,
+                    iteration=it, on_rejoin=self._on_rejoin))
+                # adversarial side channel — None for plain fail-stop
+                # models, keeping every defended branch below inert.
+                # Injections are recorded from the same model outputs the
+                # simulator records from, which is what makes the two
+                # layers' timelines injection-count identical by
+                # construction.
+                adv = adversarial_plan(self.churn_model, it)
+                record_injections(self.timeline, it, crash_times, adv)
 
-        chains = [list(c) for c in self.policy.plan()]
-        jobs: List[Job] = []
-        per_dn: Dict[int, int] = {}
-        for chain in chains:
-            dn = chain[0]
-            avail = batches_per_data_node.get(dn, [])
-            k = per_dn.get(dn, 0)
-            if k < len(avail):
-                jobs.append(Job(index=len(jobs), data_node=dn,
-                                mb=avail[k], chain=list(chain)))
-                per_dn[dn] = k + 1
-        launched = len(jobs)
+            with spans.span("plan"):
+                chains = [list(c) for c in self.policy.plan()]
+            jobs: List[Job] = []
+            per_dn: Dict[int, int] = {}
+            for chain in chains:
+                dn = chain[0]
+                avail = batches_per_data_node.get(dn, [])
+                k = per_dn.get(dn, 0)
+                if k < len(avail):
+                    jobs.append(Job(index=len(jobs), data_node=dn,
+                                    mb=avail[k], chain=list(chain)))
+                    per_dn[dn] = k + 1
+            launched = len(jobs)
 
-        res = self.recovery.resolve(jobs, chains, crash_times, horizon,
-                                    adv=adv, timeline=self.timeline,
-                                    iteration=it)
-        self.last_chains = chains
-        self.last_resolution = res
+            with spans.span("resolve"):
+                res = self.recovery.resolve(jobs, chains, crash_times, horizon,
+                                            adv=adv, timeline=self.timeline,
+                                            iteration=it)
+            self.last_chains = chains
+            self.last_resolution = res
 
-        # corrupt-gradient injection: per completed job, the stages
-        # whose relay the adversarial plan corrupts (on the job's
-        # *final* chain, after any reroutes)
-        corrupt = adv.corrupt if adv is not None else {}
-        corrupt_stages: Dict[int, Dict[int, Tuple]] = {}
-        if corrupt:
-            S = self.net.num_stages
-            for job in res.completed:
-                hit = {s: corrupt[job.chain[s + 1]] + (job.chain[s + 1],)
-                       for s in range(S) if job.chain[s + 1] in corrupt}
-                if hit:
-                    corrupt_stages[job.index] = hit
-        self._corrupt_stages = corrupt_stages
-        self._screen = (self.grad_screen if self.grad_screen is not None
-                        else bool(corrupt))
-        self._grads_flagged = 0
+            # corrupt-gradient injection: per completed job, the stages
+            # whose relay the adversarial plan corrupts (on the job's
+            # *final* chain, after any reroutes)
+            corrupt = adv.corrupt if adv is not None else {}
+            corrupt_stages: Dict[int, Dict[int, Tuple]] = {}
+            if corrupt:
+                S = self.net.num_stages
+                for job in res.completed:
+                    hit = {s: corrupt[job.chain[s + 1]] + (job.chain[s + 1],)
+                           for s in range(S) if job.chain[s + 1] in corrupt}
+                    if hit:
+                        corrupt_stages[job.index] = hit
+            self._corrupt_stages = corrupt_stages
+            self._screen = (self.grad_screen if self.grad_screen is not None
+                            else bool(corrupt))
+            self._grads_flagged = 0
+            self._syncs = HostSyncs()
 
-        wire = self._make_wire(chains)
-        self.last_wire_codecs = list(wire.names) if wire is not None else []
-        mean_loss = self._execute(res, wire)
-        self.last_wire_bytes = wire.bytes if wire is not None else 0
+            with spans.span("execute"):
+                wire = self._make_wire(chains)
+                self.last_wire_codecs = (list(wire.names) if wire is not None
+                                         else [])
+                mean_loss = self._execute(res, wire)
+                self.last_wire_bytes = wire.bytes if wire is not None else 0
 
-        # ---- commit crashes for the next iteration --------------------
-        for nid in crash_times:
-            self.net.kill_node(nid)
-            self.policy.on_crash(nid)
+            with spans.span("commit"):
+                # ---- commit crashes for the next iteration -----------
+                for nid in crash_times:
+                    self.net.kill_node(nid)
+                    self.policy.on_crash(nid)
 
-        # ---- reputation: decay first (rehabilitation), then charge
-        # this iteration's detections (fresh faults carry the full
-        # quarantine penalty into the next plan).  Same ordering as the
-        # sim engine; both no-op bit-identically on clean runs.
-        if res.rep_reports or self.net.reputation_active():
-            self.net.decay_reputations()
-            for r_nid in res.rep_reports:
-                self.net.report_fault(r_nid)
+                # ---- reputation: decay first (rehabilitation), then charge
+                # this iteration's detections (fresh faults carry the full
+                # quarantine penalty into the next plan).  Same ordering as
+                # the sim engine; both no-op bit-identically on clean runs.
+                if res.rep_reports or self.net.reputation_active():
+                    self.net.decay_reputations()
+                    for r_nid in res.rep_reports:
+                        self.net.report_fault(r_nid)
 
-        self.step += 1
-        if (self.checkpoint_dir and self.checkpoint_every
-                and self.step % self.checkpoint_every == 0):
-            self.save_checkpoint()
+                self.step += 1
+                if (self.checkpoint_dir and self.checkpoint_every
+                        and self.step % self.checkpoint_every == 0):
+                    self.save_checkpoint()
 
-        self.losses.append(mean_loss)
-        return IterationResult(
-            loss=mean_loss, completed=len(res.completed), launched=launched,
-            dropped=res.dropped, rerouted=res.rerouted,
-            requeued=res.requeued, fwd_recomputes=res.fwd_recomputes,
-            bwd_replays=res.bwd_replays,
-            store_peak_bytes=self.last_store_peak_bytes,
-            wire_bytes=self.last_wire_bytes,
-            wire_codecs=tuple(self.last_wire_codecs),
-            deadline_requeues=res.deadline_requeues,
-            grads_flagged=self._grads_flagged)
+            self.losses.append(mean_loss)
+            return IterationResult(
+                loss=mean_loss, completed=len(res.completed),
+                launched=launched,
+                dropped=res.dropped, rerouted=res.rerouted,
+                requeued=res.requeued, fwd_recomputes=res.fwd_recomputes,
+                bwd_replays=res.bwd_replays,
+                store_peak_bytes=self.last_store_peak_bytes,
+                wire_bytes=self.last_wire_bytes,
+                wire_codecs=tuple(self.last_wire_codecs),
+                deadline_requeues=res.deadline_requeues,
+                grads_flagged=self._grads_flagged,
+                host_syncs=self._syncs.n)
 
     # ------------------------------------------------------------------
     # Numeric pass
@@ -546,11 +587,14 @@ class RuntimeTrainer:
             for lo in range(0, len(idxs), C):
                 jobs = [done[k] for k in idxs[lo:lo + C]]
                 ids = tuple(j.index for j in jobs)
-                toks, labels = _batch([j.mb for j in jobs], self.device)
-                loss_sum, gh = _chunk_pass(
-                    self.stages, self.store, self.stage_params, head_p,
-                    toks, labels, ids, per, remat=self.remat,
-                    grad_stage=grad_stage, replay=replay, wire=wire)
+                with spans.span("chunk"):
+                    toks, labels = _batch([j.mb for j in jobs], self.device,
+                                          self._syncs)
+                    loss_sum, gh = _chunk_pass(
+                        self.stages, self.store, self.stage_params, head_p,
+                        toks, labels, ids, per, remat=self.remat,
+                        grad_stage=grad_stage, syncs=self._syncs,
+                        replay=replay, wire=wire)
                 total += loss_sum
                 g_head = (gh if g_head is None else
                           tree_map(torch.add, g_head, gh))
@@ -570,6 +614,7 @@ class RuntimeTrainer:
         if mode == "zero":
             return tree_map(torch.zeros_like, tree)
         rng = np.random.default_rng([seed, self.step, job, stage])
+        self._syncs.n += len(leaves(tree))
         return tree_map(
             lambda a: a + scale * torch.from_numpy(
                 rng.standard_normal(a.shape)).to(a.device, a.dtype), tree)
@@ -602,6 +647,7 @@ class RuntimeTrainer:
         flagged: set = set()
         for s in range(S):
             vecs = [self._flatten_grads(gs[s]) for _, _, gs in contribs]
+            self._syncs.n += sum(len(leaves(gs[s])) for _, _, gs in contribs)
             norms = np.array([float(np.linalg.norm(v)) for v in vecs])
             med = float(np.sort(norms)[(k - 1) // 2])
             if med > 0.0:
@@ -650,60 +696,73 @@ class RuntimeTrainer:
             key = (ev.job, ev.stage, ev.direction)
             lost[key] = lost.get(key, 0) + 1
         for job in done:
-            toks, labels = _batch([job.mb], self.device)
-            ids = (job.index,)
-            x = self.stages.embed(self.head_params[job.data_node], toks)
-            for s in range(S):
-                self.store.put(s, ids, x)
-                for _ in range(lost.get((job.index, s, "fwd"), 0)):
-                    self.stages.forward(s, self.stage_params[s], x)
-                if self.remat:
-                    x = self.stages.forward(s, self.stage_params[s], x)
-                else:
-                    x, resid = self.stages.forward_fused(
-                        s, self.stage_params[s], x)
-                    self.store.put_residuals(s, ids, resid)
-                if wire is not None and s < S - 1:
-                    x = wire.send(s, x)
-            losses, g_head, g_hidden = self.stages.head_loss(
-                self.head_params[job.data_node], x[None], labels)
-            total += float(losses[0])
-            g = g_hidden[0]
-            g_stages: List[Any] = [None] * S
-            for s in reversed(range(S)):
-                for _ in range(lost.get((job.index, s, "bwd"), 0)):
-                    # a replay leaves g as it was: the real dispatch
-                    # below uses the same one
-                    if not self.remat and self.store.has_residuals(s, ids):
-                        self.stages.backward_from_residuals(
-                            s, self.store.residuals(s, ids), g)
-                    else:
-                        self.stages.backward(
-                            s, self.stage_params[s],
-                            self.store.get(s, job.index), g)
-                if self.remat:
-                    dp, dx = self.stages.backward(
-                        s, self.stage_params[s],
-                        self.store.get(s, job.index), g)
-                else:
-                    dp, dx = self.stages.backward_from_residuals(
-                        s, self.store.residuals(s, ids), g)
-                hit = corrupt_stages.get(job.index)
-                if hit is not None and s in hit:
-                    # the corrupt relay at this stage perturbs the
-                    # backward results it computed; the poisoned
-                    # cotangent dx flows into every earlier stage
-                    mode, scale, c_seed, _nid = hit[s]
-                    dp = self._perturb_tree(dp, mode, scale, c_seed,
-                                            job.index, s)
-                    dx = self._perturb_tree(dx, mode, scale, c_seed,
-                                            job.index, s)
-                g_stages[s] = dp
-                g = dx
-                self.store.drop(s, ids)
-            g_emb = self.stages.embed_backward(
-                self.head_params[job.data_node], toks, g)
-            g_head = tree_map(torch.add, g_head, g_emb)
+            with spans.span("chunk"):
+                toks, labels = _batch([job.mb], self.device, self._syncs)
+                ids = (job.index,)
+                with spans.span("embed"):
+                    x = self.stages.embed(self.head_params[job.data_node],
+                                          toks)
+                for s in range(S):
+                    self.store.put(s, ids, x)
+                    for _ in range(lost.get((job.index, s, "fwd"), 0)):
+                        with spans.span("replay", stage=s, direction="fwd"):
+                            self.stages.forward(s, self.stage_params[s], x)
+                    with spans.span("stage.fwd", stage=s):
+                        if self.remat:
+                            x = self.stages.forward(s, self.stage_params[s],
+                                                    x)
+                        else:
+                            x, resid = self.stages.forward_fused(
+                                s, self.stage_params[s], x)
+                            self.store.put_residuals(s, ids, resid)
+                    if wire is not None and s < S - 1:
+                        x = wire.send(s, x)
+                with spans.span("head_loss"):
+                    losses, g_head, g_hidden = self.stages.head_loss(
+                        self.head_params[job.data_node], x[None], labels)
+                with spans.span("loss_sync"):
+                    total += float(losses[0])
+                self._syncs.n += 1
+                g = g_hidden[0]
+                g_stages: List[Any] = [None] * S
+                for s in reversed(range(S)):
+                    for _ in range(lost.get((job.index, s, "bwd"), 0)):
+                        # a replay leaves g as it was: the real dispatch
+                        # below uses the same one
+                        with spans.span("replay", stage=s, direction="bwd"):
+                            if (not self.remat
+                                    and self.store.has_residuals(s, ids)):
+                                self.stages.backward_from_residuals(
+                                    s, self.store.residuals(s, ids), g)
+                            else:
+                                self.stages.backward(
+                                    s, self.stage_params[s],
+                                    self.store.get(s, job.index), g)
+                    with spans.span("stage.bwd", stage=s):
+                        if self.remat:
+                            dp, dx = self.stages.backward(
+                                s, self.stage_params[s],
+                                self.store.get(s, job.index), g)
+                        else:
+                            dp, dx = self.stages.backward_from_residuals(
+                                s, self.store.residuals(s, ids), g)
+                        hit = corrupt_stages.get(job.index)
+                        if hit is not None and s in hit:
+                            # the corrupt relay at this stage perturbs the
+                            # backward results it computed; the poisoned
+                            # cotangent dx flows into every earlier stage
+                            mode, scale, c_seed, _nid = hit[s]
+                            dp = self._perturb_tree(dp, mode, scale, c_seed,
+                                                    job.index, s)
+                            dx = self._perturb_tree(dx, mode, scale, c_seed,
+                                                    job.index, s)
+                    g_stages[s] = dp
+                    g = dx
+                    self.store.drop(s, ids)
+                with spans.span("embed.bwd"):
+                    g_emb = self.stages.embed_backward(
+                        self.head_params[job.data_node], toks, g)
+                g_head = tree_map(torch.add, g_head, g_emb)
             if self.record_microbatch_grads:
                 self.last_microbatch_grads.append(
                     (job.index, g_head, list(g_stages)))
@@ -761,18 +820,19 @@ class RuntimeTrainer:
         return total
 
     def _apply_update(self, grad_stage, g_head_by_dn, n_completed: int):
-        for s in range(self.net.num_stages):
-            if grad_stage[s] is None:
-                continue
-            gs = tree_map(lambda a: a / n_completed, grad_stage[s])
-            self.stage_params[s], self.stage_opt[s] = self._upd(
-                gs, self.stage_opt[s], self.stage_params[s])
-        for dn, (gh, n) in g_head_by_dn.items():
-            if gh is None:
-                continue
-            g = tree_map(lambda a: a / n, gh)
-            self.head_params[dn], self.head_opt[dn] = self._upd(
-                g, self.head_opt[dn], self.head_params[dn])
+        with spans.span("update"):
+            for s in range(self.net.num_stages):
+                if grad_stage[s] is None:
+                    continue
+                gs = tree_map(lambda a: a / n_completed, grad_stage[s])
+                self.stage_params[s], self.stage_opt[s] = self._upd(
+                    gs, self.stage_opt[s], self.stage_params[s])
+            for dn, (gh, n) in g_head_by_dn.items():
+                if gh is None:
+                    continue
+                g = tree_map(lambda a: a / n, gh)
+                self.head_params[dn], self.head_opt[dn] = self._upd(
+                    g, self.head_opt[dn], self.head_params[dn])
 
 
 class CentralizedTrainer:
@@ -830,14 +890,16 @@ class CentralizedTrainer:
         grad_stage: List[Any] = [None] * S
         g_head = None
         C = _chunk_size(self.cfg, self.dispatch_chunk, B, per, seq)
+        syncs = HostSyncs()
         for lo in range(0, B, C):
             part = microbatches[lo:lo + C]
             ids = tuple(range(lo, lo + len(part)))
-            toks, labels = _batch(part, self.device)
+            toks, labels = _batch(part, self.device, syncs)
             loss_sum, gh = _chunk_pass(
                 self.stages, self.store, self.stage_params,
                 self.head_params, toks, labels, ids, per,
-                remat=self.remat, grad_stage=grad_stage, wire=wire)
+                remat=self.remat, grad_stage=grad_stage, syncs=syncs,
+                wire=wire)
             total += loss_sum
             g_head = gh if g_head is None else tree_map(torch.add, g_head, gh)
         for s in range(S):

@@ -26,15 +26,21 @@ driver feeds them:
 from __future__ import annotations
 
 import argparse
+import itertools
 import time
 from dataclasses import dataclass
 from typing import Optional
 
 import torch
 
+from repro_torch import spans
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (Transformer, decode_step,
                                             init_cache, prefill)
+
+
+# the ``request`` id of a call's spans: its place among the process's calls
+_REQUESTS = itertools.count()
 
 
 @dataclass
@@ -70,31 +76,42 @@ def generate(model: Transformer, cfg: ModelConfig, prompt: torch.Tensor, *,
     With ``window`` the attention cache is a ring buffer of ``window``
     slots, else it holds ``P + gen``; the SSM state is O(1) either way.
     The cache is f32 whatever the params' dtype, as in the JAX driver.
-    Greedy when ``temperature <= 0``.
+    Greedy when ``temperature <= 0``.  Spans (``repro_torch.spans``):
+    ``prefill``, each ``decode.step``, and the ``logits`` kept and the
+    token ``sample``d after each, all with the call's ``request`` id and
+    the decode step's ``step``.
     """
     B, P = prompt.shape
     dev = prompt.device
+    request = next(_REQUESTS)
     cache_len = window if window is not None else P + gen
     cache = init_cache(cfg, B, cache_len, dtype=torch.float32, device=dev)
     _sync(dev)
     t0 = time.perf_counter()
-    if embeds is not None:
-        logits, cache = prefill(model, cfg, embeds=embeds, cache=cache)
-    else:
-        logits, cache = prefill(model, cfg, tokens=prompt, vision=vision,
-                                cache=cache)
+    with spans.span("prefill", request=request):
+        if embeds is not None:
+            logits, cache = prefill(model, cfg, embeds=embeds, cache=cache)
+        else:
+            logits, cache = prefill(model, cfg, tokens=prompt, vision=vision,
+                                    cache=cache)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
 
-    tok = _sample(logits, temperature, generator)
-    toks, all_logits = [tok], [logits.float()]
+    with spans.span("sample", request=request):
+        tok = _sample(logits, temperature, generator)
+    with spans.span("logits", request=request):
+        toks, all_logits = [tok], [logits.float()]
     t0 = time.perf_counter()
     for i in range(gen):
-        logits, cache = decode_step(model, cfg, tokens=tok, vision=vision,
-                                    cache=cache, index=P + i, window=window)
-        tok = _sample(logits, temperature, generator)
+        with spans.span("decode.step", request=request, step=i):
+            logits, cache = decode_step(model, cfg, tokens=tok,
+                                        vision=vision, cache=cache,
+                                        index=P + i, window=window)
+        with spans.span("sample", request=request, step=i):
+            tok = _sample(logits, temperature, generator)
         toks.append(tok)
-        all_logits.append(logits.float())
+        with spans.span("logits", request=request, step=i):
+            all_logits.append(logits.float())
     _sync(dev)
     decode_s = time.perf_counter() - t0
     return Generation(torch.cat(toks, dim=1), torch.stack(all_logits),

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
+from repro_torch import spans
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
 from repro_torch.parallel.sharding import (dim_shards, embed, gather_last,
@@ -350,25 +351,28 @@ def apply_attention(p, x, cfg: ModelConfig, *, positions, causal=True,
         # copy_ casts K/V to the cache dtype, as JAX's update does
         cache["k"][:, write_index:write_index + S] = merge_last(k)
         cache["v"][:, write_index:write_index + S] = merge_last(v)
-        if S == 1:
-            out = _attend(lambda q, ck, cv, kv_heads: _decode_attention(
-                q, ck, cv, kv_valid, ck.shape[-1] // hd, hd,
-                kv_heads=kv_heads), q, cache["k"], cache["v"])
-        elif use_kernel:
-            # the cache was empty: attend over this step's own K/V
-            out = kops.flash_attention(q, k, v, causal=True)
-        else:
-            out = _attend(lambda q, k, v, kv_heads: _online_attention(
-                q, k, v, 0, causal=True, window=None, kv_heads=kv_heads),
-                q, k, v)
+        with spans.span("attention.core"):
+            if S == 1:
+                out = _attend(lambda q, ck, cv, kv_heads: _decode_attention(
+                    q, ck, cv, kv_valid, ck.shape[-1] // hd, hd,
+                    kv_heads=kv_heads), q, cache["k"], cache["v"])
+            elif use_kernel:
+                # the cache was empty: attend over this step's own K/V
+                out = kops.flash_attention(q, k, v, causal=True)
+            else:
+                out = _attend(lambda q, k, v, kv_heads: _online_attention(
+                    q, k, v, 0, causal=True, window=None, kv_heads=kv_heads),
+                    q, k, v)
         if H_eff > H:
             out = out[:, :, :H]
     elif causal and use_kernel and kv_x is None:
-        out = kops.flash_attention(q, k, v, causal=True, window=window)
+        with spans.span("attention.core"):
+            out = kops.flash_attention(q, k, v, causal=True, window=window)
     else:
-        out = _attend(lambda q, k, v, kv_heads: _online_attention(
-            q, k, v, 0, causal=causal and kv_x is None, window=window,
-            kv_heads=kv_heads), q, k, v)
+        with spans.span("attention.core"):
+            out = _attend(lambda q, k, v, kv_heads: _online_attention(
+                q, k, v, 0, causal=causal and kv_x is None, window=window,
+                kv_heads=kv_heads), q, k, v)
 
     return project(merge_last(out), p["wo"]), cache
 

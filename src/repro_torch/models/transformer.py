@@ -41,7 +41,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, spans
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
@@ -286,18 +286,20 @@ def _apply_block(bp: Block, x, cfg: ModelConfig, *, positions, window, cache,
     ``Block``, or one layer's view of a stacked tree); ``use_kernel`` goes
     to ``apply_attention`` and ``apply_mamba``, ``moe_impl`` to
     ``apply_moe``."""
-    h = L.apply_norm(bp.ln1, x, cfg)
+    with spans.span("norm"):
+        h = L.apply_norm(bp.ln1, x, cfg)
     if cfg.arch_type == "ssm":
         out, _ = SSM.apply_mamba(bp.mamba, h, cfg,
                                  cache=cache["ssm"] if cache else None,
                                  use_kernel=use_kernel)
         return x + out, 0.0
 
-    a_out, _ = L.apply_attention(bp.attn, h, cfg, positions=positions,
-                                 window=window,
-                                 cache=cache["attn"] if cache else None,
-                                 write_index=write_index, kv_valid=kv_valid,
-                                 use_kernel=use_kernel)
+    with spans.span("attention"):
+        a_out, _ = L.apply_attention(bp.attn, h, cfg, positions=positions,
+                                     window=window,
+                                     cache=cache["attn"] if cache else None,
+                                     write_index=write_index,
+                                     kv_valid=kv_valid, use_kernel=use_kernel)
     if cfg.arch_type == "hybrid":
         s_out, _ = SSM.apply_mamba(bp.mamba, h, cfg,
                                    cache=cache["ssm"] if cache else None,
@@ -305,11 +307,14 @@ def _apply_block(bp: Block, x, cfg: ModelConfig, *, positions, window, cache,
         x = x + 0.5 * (a_out + s_out)
     else:
         x = x + a_out
-    h2 = L.apply_norm(bp.ln2, x, cfg)
+    with spans.span("norm"):
+        h2 = L.apply_norm(bp.ln2, x, cfg)
     if cfg.is_moe:
-        m_out, aux = MOE.apply_moe(bp.moe, h2, cfg, impl=moe_impl)
+        with spans.span("moe"):
+            m_out, aux = MOE.apply_moe(bp.moe, h2, cfg, impl=moe_impl)
     else:
-        m_out, aux = L.apply_mlp(bp.mlp, h2, cfg), 0.0
+        with spans.span("mlp"):
+            m_out, aux = L.apply_mlp(bp.mlp, h2, cfg), 0.0
     # Megatron-style sequence parallelism: the residual stream between
     # blocks is sharded along S over the 'model' axis (rules.seq)
     return shard(x + m_out, "batch", "seq", None), aux

@@ -20,6 +20,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from repro_torch import spans
 from repro_torch.tree import flatten, leaves, tree_map, unflatten
 
 
@@ -56,24 +57,26 @@ class AdamW:
         flat_g = leaves(grads)
         flat_m, flat_v = leaves(state.m), leaves(state.v)
         if self.grad_clip is not None:
-            gnorm = sum(g.float().square().sum() for g in flat_g).sqrt()
-            scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)
-            flat_g = [g.float() * scale for g in flat_g]
-        step = state.step + 1
-        t = step.float()
-        b1t = 1.0 - torch.full_like(t, self.b1) ** t
-        b2t = 1.0 - torch.full_like(t, self.b2) ** t
-        new_p, new_m, new_v = [], [], []
-        for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
-            g = g.float()
-            m = self.b1 * m + (1 - self.b1) * g
-            v = self.b2 * v + (1 - self.b2) * g.square()
-            delta = (m / b1t) / ((v / b2t).sqrt() + self.eps)
-            if p.ndim >= 2:  # decoupled decay on matrices only
-                delta = delta + self.weight_decay * p.float()
-            new_p.append((p.float() - self.lr * delta).to(p.dtype))
-            new_m.append(m)
-            new_v.append(v)
+            with spans.span("adamw.clip"):
+                gnorm = sum(g.float().square().sum() for g in flat_g).sqrt()
+                scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)
+                flat_g = [g.float() * scale for g in flat_g]
+        with spans.span("adamw.step"):
+            step = state.step + 1
+            t = step.float()
+            b1t = 1.0 - torch.full_like(t, self.b1) ** t
+            b2t = 1.0 - torch.full_like(t, self.b2) ** t
+            new_p, new_m, new_v = [], [], []
+            for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
+                g = g.float()
+                m = self.b1 * m + (1 - self.b1) * g
+                v = self.b2 * v + (1 - self.b2) * g.square()
+                delta = (m / b1t) / ((v / b2t).sqrt() + self.eps)
+                if p.ndim >= 2:  # decoupled decay on matrices only
+                    delta = delta + self.weight_decay * p.float()
+                new_p.append((p.float() - self.lr * delta).to(p.dtype))
+                new_m.append(m)
+                new_v.append(v)
         m_spec, v_spec = flatten(state.m)[1], flatten(state.v)[1]
         return unflatten(spec, new_p), AdamWState(
             step=step, m=unflatten(m_spec, new_m), v=unflatten(v_spec, new_v))
