@@ -37,7 +37,16 @@ stops with a non-zero exit at the first phase that fails:
    the plain version's and the least time the card could take at the
    CUDA cores' f32 rate and at the tensor cores' 3xTF32 rate (no single
    PyTorch call computes it), then the device times per call, as for
-   flash;
+   flash; 3b. the fused AdamW kernel (``adamw.cu``, two launches a tree)
+   against its plain version (``ops.adamw_update_plain``) on the same
+   inputs at the training cells' trees (``ADAMW_CELLS``: the 7B cell's two
+   stages of 4 StarCoder2-7B layers and its head, the GPT-like cells' four
+   stages and two heads), clipped and divided by 4 microbatches: the
+   parameters within ``ADAMW_PARAM_ULPS`` ulp, the moments within
+   ``ADAMW_MOMENT_RTOL`` of each leaf's largest, one launch counted a
+   tree; each tree's device time, a single call's, the plain version's and
+   the byte bound (24 B a bf16 parameter at 3.35 TB/s), and each cell's
+   sums;
 4. ``gwtf-llama-300m``, ``tinyllama-1.1b``, ``mamba2-130m``,
    ``hymba-1.5b``, ``qwen1.5-4b``, ``starcoder2-7b``, ``gwtf-llama-7b``,
    ``gemma-7b`` (head_dim 256), ``granite-moe-3b-a800m``,
@@ -70,7 +79,8 @@ stops with a non-zero exit at the first phase that fails:
    and tokens/s, the trainer's counter invariants held, every loss
    finite, and the kernels' launches counted over the run (the training
    path attends through ``_online_attention``, which autograd
-   differentiates, and launches neither kernel); the peak memory, and the
+   differentiates, and launches neither attention kernel; AdamW's kernel
+   updates each stage and head tree once an iteration); the peak memory, and the
    time of the gradient screen's host copy of one stage's gradient tree
    (the screen runs only under corrupt-gradient churn); then, reduced, in
    a child process with ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` and
@@ -128,7 +138,8 @@ stops with a non-zero exit at the first phase that fails:
     --mode spmd`` (``SPMD_ARGS``) trains ``gwtf-llama-300m`` at full width
     through ``build_spmd`` and ``spmd_step``, each step's loss (finite),
     ms and tokens/s, the last three steps as ``profile_run``'s (one under
-    ``torch.profiler``), peak memory, no kernel launched; 10b. reduced f32
+    ``torch.profiler``), peak memory, no attention kernel launched and
+    AdamW's once a step; 10b. reduced f32
     VLM (with vision, nonzero gates), audio (frame embeddings) and MoE
     models through ``make_train_step`` on cuda against the cpu, each
     step's loss within ``TRAIN_LOSS_RTOL``;
@@ -148,7 +159,9 @@ stops with a non-zero exit at the first phase that fails:
     and through ``make_train_step(mesh=make_host_mesh(), rules=
     ShardingRules())`` on an NCCL group of world size 1, parameters and
     AdamW state DTensors on the (1, 1) mesh, both under deterministic
-    algorithms: losses, every parameter and AdamW leaf bit for bit equal
+    algorithms, both updating through AdamW's kernel (the sharded step on
+    its DTensors' local shards, once a step each): losses, every parameter
+    and AdamW leaf bit for bit equal
     (or, failing that, within ``SHARDED_TOL``, the largest difference
     printed), each step's ms beside phase 10's losses;
 12. a JSON line of the kernels, then the card, then the result line.
@@ -190,6 +203,8 @@ from repro_torch.core.runtime.serving import (ServeTrainer,  # noqa: E402
                                               serving_inputs)
 from repro_torch.core.runtime import cache as train_cache  # noqa: E402
 from repro_torch.core.runtime import serving  # noqa: E402
+from repro_torch.core.runtime.stages import (init_head_params,  # noqa: E402
+                                             init_stage_params)
 from repro_torch.core.scenarios import corpus, harness  # noqa: E402
 from repro_torch.core.scenarios import generate as scenarios  # noqa: E402
 from repro_torch.core.scenarios.spec import ScenarioSpec  # noqa: E402
@@ -303,6 +318,16 @@ SSD_CASES = [
     # the reduced hybrid serve of phase 7b prefills 8 tokens
     ("S=8", (1, 8, 4, 32, 16), torch.float32, "zero", False, 2e-3),
 ]
+# phase 3b: the fused AdamW kernel at the training cells' trees, (arch,
+# layers, stages, data nodes): sc2-7b-8l-train-calm's and the gpt300m cells'
+# stage and head trees, clipped, each update's gradients divided by the
+# cells' 4 microbatches; parameters held to ADAMW_PARAM_ULPS ulp of their
+# dtype at the operands' magnitude, m and v to ADAMW_MOMENT_RTOL of each
+# leaf's largest (the kernel sums the clip norm in another order)
+ADAMW_CELLS = [("starcoder2-7b", 8, 2, 1), ("gwtf-gpt-300m", 16, 4, 2)]
+ADAMW_HYPER = dict(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
+                   grad_clip=1.0, divisor=4)
+ADAMW_PARAM_ULPS, ADAMW_MOMENT_RTOL = 1, 1e-6
 # phase 2's sweep of the f32 body's edges, untimed, each held at 2e-4
 # against the plain version: every D, lengths that end inside a warp's 16
 # rows and inside a KV tile, causal or not, windows from 1 key to more than
@@ -410,7 +435,8 @@ HARNESS_FULL = [
 HARNESS_FULL_ZERO_CHURN = HARNESS_FULL[0][:3]
 # phase 9: the port's examples, run in this process on cuda and on the cpu,
 # with the flash launches each makes on cuda (torch_serve_decode: one
-# prefill of its 4 layers; the rest train, which launches no kernel)
+# prefill of its 4 layers; the rest train, which launches no attention
+# kernel and AdamW's once a tree an update)
 EXAMPLES = [("torch_quickstart", [], 0),
             ("torch_decentralized_train",
              ["--iterations", "3", "--activation-codec", "int8"], 0),
@@ -730,9 +756,105 @@ def phase_ssd_kernel():
     return results
 
 
+def adamw_gaps(got, want, before) -> dict:
+    """The kernel's update against the plain version's: the largest
+    parameter gap, absolute and in ulps of the parameter's dtype at the
+    magnitude of the leaf before and both results, and the largest moment
+    gap over its leaf's largest moment."""
+    ulps = err = moment = 0.0
+    for a, b, p in zip(got[0], want[0], before):
+        if a.numel() == 0:
+            continue
+        x, y = a.float(), b.float()
+        mag = torch.maximum(torch.maximum(x.abs(), y.abs()), p.float().abs())
+        bits = 7 if a.dtype == torch.bfloat16 else 23
+        ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - bits)
+        gap = (x - y).abs()
+        err = max(err, float(gap.max()))
+        ulps = max(ulps, float((gap / ulp).max()))
+        del x, y, mag, ulp, gap
+    for a, b in zip(got[1] + got[2], want[1] + want[2]):
+        if a.numel():
+            top = float(b.abs().max())
+            moment = max(moment, float((a - b).abs().max()) / max(top, 1e-30))
+    return dict(max_abs_err=err, param_ulps=ulps, moment_rel=moment)
+
+
+def phase_adamw_kernel():
+    """3b: ``ops.adamw_update`` against ``ops.adamw_update_plain`` at the
+    training cells' trees, on the same inputs; returns the 7B cell's
+    numbers for the kernels line."""
+    print("== 3b. fused AdamW kernel against its plain version at the "
+          "training cells' trees")
+    results = {}
+    for arch, layers, stages, heads in ADAMW_CELLS:
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        gen = torch.Generator()
+        shapes = {"stage": init_stage_params(cfg, 0, stages, gen, device="meta"),
+                  "head": init_head_params(cfg, gen, device="meta")}
+        cell = dict(device_ms=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                    params=0, max_abs_err=0.0, param_ulps=0.0, moment_rel=0.0)
+        for name, count in (("stage", stages), ("head", heads)):
+            metas = leaves(shapes[name])
+            g = torch.Generator(device="cuda").manual_seed(len(metas) + layers)
+            draw = (lambda t, k: torch.randn(  # noqa: E731
+                t.shape, generator=g, device="cuda") * k)
+            ps = [draw(t, 1.0).to(t.dtype) for t in metas]
+            args = ([draw(t, 3.0).to(t.dtype) for t in metas], ps,
+                    [draw(t, 1e-3) for t in metas],
+                    [draw(t, 1e-3).abs() for t in metas],
+                    torch.zeros((), dtype=torch.int32, device="cuda"))
+            before = ops.adamw_update.launches
+            got = ops.adamw_update(*args, **ADAMW_HYPER)
+            if ops.adamw_update.launches != before + 1:
+                raise SystemExit(f"3b {cfg.name} {name}: adamw_update.launches "
+                                 f"rose by {ops.adamw_update.launches - before}")
+            want = ops.adamw_update_plain(*args, **ADAMW_HYPER)
+            gaps = adamw_gaps(got, want, ps)
+            if int(got[3]) != int(want[3]) or gaps["param_ulps"] > ADAMW_PARAM_ULPS \
+                    or gaps["moment_rel"] > ADAMW_MOMENT_RTOL:
+                raise SystemExit(f"3b {cfg.name} {name}: {gaps}, steps "
+                                 f"{int(got[3])} and {int(want[3])}; limits "
+                                 f"{ADAMW_PARAM_ULPS} ulp, {ADAMW_MOMENT_RTOL}")
+            del got, want
+            kernel = lambda: ops.adamw_update(*args, **ADAMW_HYPER)  # noqa: E731
+            plain = lambda: ops.adamw_update_plain(  # noqa: E731
+                *args, **ADAMW_HYPER)
+            dev = device_ms(kernel, reps=3)
+            ms, plain_ms = median_ms(kernel, reps=5), median_ms(plain, reps=3)
+            n = sum(t.numel() for t in ps)
+            nbytes = sum(t.numel() * (2 * gr.element_size() + 2 * t.element_size()
+                                      + 16) for t, gr in zip(ps, args[0]))
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            print(f"{cfg.name} {name} tree x{count}: {len(ps)} leaves, "
+                  f"{n / 1e6:.1f} M params, {nbytes / 1e9:.2f} GB to move; "
+                  f"kernel device {show(dev)}, a single call {ms:.3f} ms, "
+                  f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms at "
+                  f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; against the plain version: "
+                  f"params {gaps['param_ulps']:.3g} ulp (largest difference "
+                  f"{gaps['max_abs_err']:.3g}), moments {gaps['moment_rel']:.3g} "
+                  f"of the leaf's largest")
+            for k, v in (("device_ms", dev), ("ms", ms), ("plain_ms", plain_ms),
+                         ("bound_ms", bound_ms), ("params", n)):
+                cell[k] = None if v is None or cell[k] is None else cell[k] + count * v
+            for k in ("max_abs_err", "param_ulps", "moment_rel"):
+                cell[k] = max(cell[k], gaps[k])
+            del args, ps, kernel, plain
+            torch.cuda.empty_cache()
+        share = (f"{cell['bound_ms'] / cell['device_ms']:.1%} of the bound"
+                 if cell["device_ms"] else "device time not taken")
+        print(f"{cfg.name} cell, {stages} stages and {heads} heads, "
+              f"{cell['params'] / 1e9:.3f} B params: kernel device "
+              f"{show(cell['device_ms'])} ({share}), plain {cell['plain_ms']:.2f} "
+              f"ms a single call each tree, bound {cell['bound_ms']:.2f} ms")
+        results[arch] = cell
+    return results[ADAMW_CELLS[0][0]]
+
+
 def reset_launches():
     ops.flash_attention.launches = 0
     ops.ssd_scan.launches = 0
+    ops.adamw_update.launches = 0
     for body in fa.BODY_LAUNCHES:
         fa.BODY_LAUNCHES[body] = 0
 
@@ -969,6 +1091,19 @@ def phase_gpu_vs_cpu():
               f"f32 body")
 
 
+def check_adamw_launches(label: str, calm: int, iters: int, trees: int,
+                         churned=None):
+    """AdamW's kernel once a tree an update: ``trees`` (stages and data
+    nodes) in each of ``iters`` calm iterations, and, over as many churned
+    iterations, at most as many (a stage left without gradients is not
+    updated)."""
+    if calm != iters * trees or (
+            churned is not None and not 0 < churned <= iters * trees):
+        raise SystemExit(f"{label}: AdamW kernel launches {calm} over {iters} "
+                         f"calm iterations of {trees} trees, {churned} over "
+                         f"the churned ones")
+
+
 def check_counters(r, churn: float):
     """The trainer's invariants on one iteration's counters."""
     ok = (r.completed + r.dropped == r.launched
@@ -984,7 +1119,8 @@ def check_counters(r, churn: float):
 
 def phase_train():
     """Train at full width as the main path; returns each kernel's
-    launches counted over exactly this run (0: neither is on the path)."""
+    launches counted over exactly this run (attention: 0, neither is on
+    the path; AdamW: one a tree updated)."""
     args = train.parser().parse_args(TRAIN_ARGS)
     t0 = time.perf_counter()
     trainer, shards = train.build_gwtf(args)
@@ -1018,14 +1154,20 @@ def phase_train():
     print("where the time goes (torch.profiler), iterations 0-2 at churn 0:")
     its = iter(range(TRAIN_ITERS))
     profile_run(cfg.name, "train iteration", lambda: step(next(its), 0.0))
+    calm_updates = ops.adamw_update.launches
     for it in range(TRAIN_ITERS, 2 * TRAIN_ITERS):
         step(it, TRAIN_CHURN)
     launches = read_launches()
     if any(launches.values()) or any(fa.BODY_LAUNCHES.values()):
         raise SystemExit(f"the training path launched kernels {launches}: its "
                          f"attention must be the differentiable plain path")
+    launches["adamw_update"] = ops.adamw_update.launches
+    check_adamw_launches("phase 6", calm_updates, TRAIN_ITERS,
+                         args.stages + args.data_nodes,
+                         launches["adamw_update"] - calm_updates)
     print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-          f"launches {launches} (neither kernel is on the training path)")
+          f"launches {launches} (no attention kernel is on the training "
+          f"path; AdamW's kernel updates each tree)")
     # the gradient screen (on only when the churn model corrupts gradients)
     # copies every per-microbatch gradient to the host: one stage's worth
     grads = trainer.stage_params[0]
@@ -1141,8 +1283,8 @@ def phase_train_vs_cpu():
 
 def phase_train_7b():
     """The paper's 7B model, cut in depth only, through ``launch.train``;
-    returns each kernel's launches over the run (0: neither is on the
-    training path)."""
+    returns each kernel's launches over the run (attention: 0, neither is
+    on the training path; AdamW: one a tree updated)."""
     args = train.parser().parse_args(TRAIN_7B_ARGS)
     full = get_config(args.arch)
     cfg = dataclasses.replace(full, num_layers=TRAIN_7B_LAYERS)
@@ -1168,6 +1310,9 @@ def phase_train_7b():
     launches = read_launches()
     if any(launches.values()) or any(fa.BODY_LAUNCHES.values()):
         raise SystemExit(f"the training path launched kernels {launches}")
+    launches["adamw_update"] = ops.adamw_update.launches
+    check_adamw_launches("phase 6d", launches["adamw_update"], TRAIN_7B_ITERS,
+                         args.stages + args.data_nodes)
     print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
           f"launches {launches}")
     del trainer
@@ -1720,32 +1865,40 @@ def phase_examples():
     """The port's examples on cuda against the same on the cpu; returns each
     kernel's launches over the cuda runs, each counted from 0."""
     print("== 9. the examples on cuda against the cpu")
-    launches = {"flash_attention": 0, "ssd_scan": 0}
+    launches = {"flash_attention": 0, "ssd_scan": 0, "adamw_update": 0}
     for name, argv, flash in EXAMPLES:
         reset_launches()                  # the main path starts here
         gpu, gpu_s = run_example(name, argv, "cuda")
         got = read_launches()
+        updates = ops.adamw_update.launches
+        if flash and updates:
+            raise SystemExit(f"{name}: {updates} AdamW kernel launches from "
+                             f"the serving example")
         if got != {"flash_attention": flash, "ssd_scan": 0} or fa.BODY_LAUNCHES[
                 fa.LIBRARY.name] != flash:
             raise SystemExit(f"{name}: launches {got}, bodies "
                              f"{fa.BODY_LAUNCHES}, want {flash} on the f32 body")
-        for k in launches:
+        for k in got:
             launches[k] += got[k]
+        launches["adamw_update"] += updates
         cpu, cpu_s = run_example(name, argv, "cpu")
         same_report(name, gpu, cpu)
         print(f"examples/{name}.py {' '.join(argv)}: exit 0, cuda {gpu_s:.1f} "
               f"s, cpu {cpu_s:.1f} s, the same report (counters exactly, "
-              f"numbers within {EXAMPLE_RTOL}), launches {got}; on cuda:")
+              f"numbers within {EXAMPLE_RTOL}), launches {got}, AdamW "
+              f"{updates}; on cuda:")
         for line in gpu.splitlines()[-4:]:
             print(f"    {line}")
+    if not launches["adamw_update"]:
+        raise SystemExit("the training examples launched no AdamW kernel")
     return launches
 
 
 def phase_spmd():
     """``--mode spmd`` at full width as the main path, through
     ``launch.train``'s ``build_spmd`` and ``spmd_step``; returns each
-    kernel's launches over the run (0: training attends through the plain,
-    differentiable path)."""
+    kernel's launches over the run (attention: 0, training attends through
+    the plain, differentiable path; AdamW: one a step)."""
     args = train.parser().parse_args(SPMD_ARGS)
     device = torch.device(args.device)
     before = torch.cuda.memory_allocated()    # what earlier phases still hold
@@ -1784,6 +1937,10 @@ def phase_spmd():
     if any(launches.values()) or any(fa.BODY_LAUNCHES.values()):
         raise SystemExit(f"--mode spmd launched kernels {launches}: its "
                          f"attention must be the differentiable plain path")
+    launches["adamw_update"] = ops.adamw_update.launches
+    if launches["adamw_update"] != args.steps:
+        raise SystemExit(f"--mode spmd: {launches['adamw_update']} AdamW "
+                         f"kernel launches over {args.steps} steps")
     gib = lambda n: f"{(n - before) / 2**30:.2f} GiB"  # noqa: E731
     print(f"peak memory {gib(torch.cuda.max_memory_allocated())} above the "
           f"{before / 2**30:.2f} GiB earlier phases held, launches {launches}; "
@@ -1842,9 +1999,13 @@ def phase_spmd_vs_cpu():
                 params, opt_state, loss = train_step(
                     params, opt_state, spmd_batch(cfg, i, device))
                 losses.append(float(loss))
-            if any(read_launches().values()):
+            if any(read_launches().values()) or (
+                    ops.adamw_update.launches
+                    != (len(losses) if device == "cuda" else 0)):
                 raise SystemExit(f"{cfg.name}: training launched kernels "
-                                 f"{read_launches()}")
+                                 f"{read_launches()}, AdamW "
+                                 f"{ops.adamw_update.launches} over "
+                                 f"{len(losses)} steps on {device}")
             runs[device] = losses
         rel = [abs(g - c) / abs(c) for g, c in zip(runs["cuda"], runs["cpu"])]
         if any(r > tol for r, tol in zip(rel, TRAIN_LOSS_RTOL)):
@@ -1887,7 +2048,8 @@ def sharded_step() -> int:
     mesh and through ``make_train_step(mesh=make_host_mesh(),
     rules=ShardingRules())`` on a process group of world size 1 (NCCL),
     parameters and AdamW state DTensors on the (1, 1) mesh, both under
-    deterministic algorithms; prints one JSON line."""
+    deterministic algorithms; prints one JSON line.  Both update through
+    AdamW's kernel: the sharded step on its DTensors' local shards."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.parallel.sharding import ShardingRules, distribute
@@ -1905,6 +2067,7 @@ def sharded_step() -> int:
                                          mesh=mesh if on_mesh else None,
                                          rules=rules)
             losses, secs = [], []
+            ops.adamw_update.launches = 0
             for i in range(args.steps):
                 b = shard.next_batch()
                 batch = {k: torch.from_numpy(b[k]).cuda()
@@ -1924,7 +2087,7 @@ def sharded_step() -> int:
                 losses.append(loss.full_tensor() if on_mesh else loss)
             full = (lambda t: t.full_tensor()) if on_mesh else (lambda t: t)
             runs[on_mesh] = dict(
-                losses=losses, secs=secs,
+                losses=losses, secs=secs, adamw=ops.adamw_update.launches,
                 leaves=[full(t) for t in leaves(params) + leaves(opt_state)],
                 dtensor=on_mesh and all(type(t).__name__ == "DTensor" for t in
                                         leaves(params) + leaves(opt_state)))
@@ -1941,6 +2104,7 @@ def sharded_step() -> int:
                 sharded["losses"] + sharded["leaves"])),
             "max_abs_diff": max(diffs), "leaves": len(plain["leaves"]),
             "all_dtensor": sharded["dtensor"],
+            "adamw_launches": [plain["adamw"], sharded["adamw"]],
             "ms": [x * 1e3 for x in plain["secs"]],
             "sharded_ms": [x * 1e3 for x in sharded["secs"]]}))
     finally:
@@ -2015,11 +2179,16 @@ def phase_launch(spmd_losses):
           f"({', '.join(f'{x:.1f}' for x in result['sharded_ms'])} ms); losses "
           f"and all {result['leaves']} parameter and AdamW leaves bit for bit "
           f"equal: {result['bitwise']} (largest difference "
-          f"{result['max_abs_diff']:.3g}); phase 10's own losses "
+          f"{result['max_abs_diff']:.3g}); AdamW kernel launches without and "
+          f"on the mesh {result['adamw_launches']}; phase 10's own losses "
           f"{[round(x, 6) for x in spmd_losses]} (its run without "
           f"deterministic algorithms)")
     if not result["all_dtensor"]:
         raise SystemExit("11b: the sharded step's state is not all DTensors")
+    n_steps = train.parser().parse_args(SPMD_ARGS).steps
+    if result["adamw_launches"] != [n_steps, n_steps]:
+        raise SystemExit(f"11b: AdamW kernel launches {result['adamw_launches']}"
+                         f", want one a step, {n_steps} in each run")
     if not result["bitwise"] and result["max_abs_diff"] > SHARDED_TOL:
         raise SystemExit(f"11b: sharded and unsharded differ by "
                          f"{result['max_abs_diff']} > {SHARDED_TOL}")
@@ -2061,11 +2230,13 @@ def main(argv=None) -> int:
     flash_timings = phase_kernel()
     phase_kernel_sweep()
     ssd_timings = phase_ssd_kernel()
-    took("1-3")
+    adamw_timings = phase_adamw_kernel()
+    torch.cuda.empty_cache()
+    took("1-3b")
 
     # each serve is one main path, counted from 0 with its model alone
     # on the card; the kernels line reports their sums
-    launches = {"flash_attention": 0, "ssd_scan": 0}
+    launches = {"flash_attention": 0, "ssd_scan": 0, "adamw_update": 0}
     for arch in SERVE_ARCHS:
         for name, n in run_serve(arch).items():
             launches[name] += n
@@ -2074,14 +2245,13 @@ def main(argv=None) -> int:
     phase_gpu_vs_cpu()
     took("4-5")
 
-    # training launches neither kernel; its counts are checked in the phase
-    phase_train()
-    torch.cuda.empty_cache()
-    phase_train_checks()
-    phase_train_vs_cpu()
-    torch.cuda.empty_cache()
-    phase_train_7b()
-    torch.cuda.empty_cache()
+    # training launches no attention kernel and AdamW's once a tree an
+    # update; the phases check the counts, each counted from 0
+    for phase in (phase_train, phase_train_checks, phase_train_vs_cpu,
+                  phase_train_7b):
+        for name, n in (phase() or {}).items():
+            launches[name] += n
+        torch.cuda.empty_cache()
     took("6-6d")
 
     # serving under churn: each run a main path counted from 0
@@ -2103,7 +2273,7 @@ def main(argv=None) -> int:
         launches[name] += n
     took("9")
 
-    # --mode spmd: a main path counted from 0; it launches neither kernel
+    # --mode spmd: a main path counted from 0; AdamW's kernel once a step
     torch.cuda.empty_cache()
     spmd_launches, spmd_losses = phase_spmd()
     for name, n in spmd_launches.items():
@@ -2130,6 +2300,11 @@ def main(argv=None) -> int:
              source="src/repro_torch/kernels/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan.py:31",
              launches=launches["ssd_scan"], **ssd_timings[SSD_CASES[0][0]]),
+        # phase 3b's 7B cell: its three trees' device time, byte bound and
+        # the plain version's time, summed
+        dict(name="adamw_update", route="cuda",
+             source="src/repro_torch/kernels/csrc/adamw.cu", replaces=None,
+             launches=launches["adamw_update"], **adamw_timings),
     ]
     print("kernels: " + ", ".join(
         f"{k['name']} launches={k['launches']} max_abs_err={k['max_abs_err']:.3g}"

@@ -824,15 +824,14 @@ class RuntimeTrainer:
             for s in range(self.net.num_stages):
                 if grad_stage[s] is None:
                     continue
-                gs = tree_map(lambda a: a / n_completed, grad_stage[s])
                 self.stage_params[s], self.stage_opt[s] = self._upd(
-                    gs, self.stage_opt[s], self.stage_params[s])
+                    grad_stage[s], self.stage_opt[s], self.stage_params[s],
+                    divisor=n_completed)
             for dn, (gh, n) in g_head_by_dn.items():
                 if gh is None:
                     continue
-                g = tree_map(lambda a: a / n, gh)
                 self.head_params[dn], self.head_opt[dn] = self._upd(
-                    g, self.head_opt[dn], self.head_params[dn])
+                    gh, self.head_opt[dn], self.head_params[dn], divisor=n)
 
 
 class CentralizedTrainer:
@@ -903,12 +902,11 @@ class CentralizedTrainer:
             total += loss_sum
             g_head = gh if g_head is None else tree_map(torch.add, g_head, gh)
         for s in range(S):
-            gs = tree_map(lambda a: a / B, grad_stage[s])
             self.stage_params[s], self.stage_opt[s] = self._upd(
-                gs, self.stage_opt[s], self.stage_params[s])
-        gh = tree_map(lambda a: a / B, g_head)
+                grad_stage[s], self.stage_opt[s], self.stage_params[s],
+                divisor=B)
         self.head_params, self.head_opt = self._upd(
-            gh, self.head_opt, self.head_params)
+            g_head, self.head_opt, self.head_params, divisor=B)
         self.last_store_peak_bytes = self.store.peak_bytes
         self.last_wire_bytes = wire.bytes if wire is not None else 0
         mean = float(total) / B

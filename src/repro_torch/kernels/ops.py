@@ -2,10 +2,16 @@
 
 A CPU tensor runs the kernel's plain PyTorch version; a CUDA tensor
 launches the hand-written kernel, or raises.  There is no fallback from
-the one to the other.
+the one to the other.  ``adamw_update`` also gives fake and meta leaves,
+which no kernel here takes, to its plain version, and DTensor leaves to
+the kernel or the plain version as their local shards would go.
 """
 from __future__ import annotations
 
+import torch
+
+from repro_torch import spans
+from repro_torch.kernels import adamw as _adamw
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels.ref import attention_reference, ssd_chunked
@@ -75,3 +81,64 @@ def ssd_scan(x, dt, A, Bm, Cm, *, h0=None):
 
 
 ssd_scan.launches = 0
+
+
+def adamw_update_plain(grads, params, m, v, step, *, lr, b1, b2, eps,
+                       weight_decay, grad_clip, divisor=1):
+    """The plain version of ``adamw_update``, on any device and on any
+    kind of tensor (DTensor, fake, meta): the gradients divided by
+    ``divisor`` in their dtype, then PyTorch's elementwise operations a
+    leaf."""
+    if divisor != 1:
+        grads = [g / divisor for g in grads]
+    if grad_clip is not None:
+        with spans.span("adamw.clip"):
+            gnorm = sum(g.float().square().sum() for g in grads).sqrt()
+            scale = torch.clamp(grad_clip / (gnorm + 1e-9), max=1.0)
+            grads = [g.float() * scale for g in grads]
+    with spans.span("adamw.step"):
+        step = step + 1
+        t = step.float()
+        b1t = 1.0 - torch.full_like(t, b1) ** t
+        b2t = 1.0 - torch.full_like(t, b2) ** t
+        new_p, new_m, new_v = [], [], []
+        for p, g, mu, nu in zip(params, grads, m, v):
+            g = g.float()
+            mu = b1 * mu + (1 - b1) * g
+            nu = b2 * nu + (1 - b2) * g.square()
+            delta = (mu / b1t) / ((nu / b2t).sqrt() + eps)
+            if p.ndim >= 2:  # decoupled decay on matrices only
+                delta = delta + weight_decay * p.float()
+            new_p.append((p.float() - lr * delta).to(p.dtype))
+            new_m.append(mu)
+            new_v.append(nu)
+    return new_p, new_m, new_v, step
+
+
+def adamw_update(grads, params, m, v, step, *, lr, b1, b2, eps, weight_decay,
+                 grad_clip, divisor=1):
+    """One tree's AdamW step over lists of leaves in one order: the
+    gradients' mean (their sum over ``divisor``), clipped to a global norm
+    of ``grad_clip`` over the tree (None: no clip), then the step with f32
+    moments, bias correction at ``step + 1`` and decay on leaves with
+    ``ndim >= 2``.  Returns new ``(params, m, v, step)``; nothing is
+    written in place.
+
+    Plain CUDA tensors take the fused kernel (``csrc/adamw.cu``), two
+    launches a tree; ``adamw_update.launches`` counts the trees it updated.
+    DTensor leaves whose local shards are plain CUDA tensors (the sharded
+    steps on the card) take it on their shards, with the clip norm summed
+    over the mesh.  Everything else takes the plain version: CPU tensors
+    and CPU DTensors, and fake and meta leaves, by type, whose ops are
+    traced and counted (the dry run).
+    """
+    hyper = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
+                 grad_clip=grad_clip, divisor=divisor)
+    if params and _adamw.takes(params[0]):
+        out = _adamw.launch(grads, params, m, v, step, **hyper)
+        adamw_update.launches += 1
+        return out
+    return adamw_update_plain(grads, params, m, v, step, **hyper)
+
+
+adamw_update.launches = 0

@@ -11,6 +11,21 @@ functional: new tensors are returned and nothing is written in place, so
 trees shared between trainers (the cached initial parameters) and the
 tensors a stored residual graph refers to stay as they were.
 
+``AdamW.update`` hands a tree's leaves to ``kernels/ops.py::adamw_update``.
+On the card, plain CUDA tensors take a fused kernel written by hand
+(``kernels/csrc/adamw.cu``), though no TPU kernel precedes it: under
+``jit`` XLA fuses the JAX package's update, while eager PyTorch runs it as
+some twenty-five elementwise passes a leaf.  The kernel clips and steps in
+two passes over each parameter, bound by bytes: it reads g twice and p, m,
+v once and writes p', m', v' once, 24 B a bf16 parameter.  The
+``divisor`` argument folds the trainers' mean over completed microbatches
+into those passes (the gradients are divided and rounded to their dtype,
+as a separate ``g / n`` would round them).  The sharded steps' DTensor
+leaves on the card take it on their local shards, the norm's partial sums
+summed over the mesh between the two passes.  CPU tensors, and fake and
+meta leaves (the dry run, whose costs count the update's operations),
+take the plain version, the same PyTorch operations as before the kernel.
+
 ``torch.optim.AdamW`` is not used: it decays every leaf.
 """
 from __future__ import annotations
@@ -20,7 +35,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
-from repro_torch import spans
+from repro_torch.kernels import ops
 from repro_torch.tree import flatten, leaves, tree_map, unflatten
 
 
@@ -51,32 +66,15 @@ class AdamW:
             step=torch.zeros((), dtype=torch.int32, device=_device(params)),
             m=zeros, v=tree_map(torch.clone, zeros))
 
-    def update(self, grads, state: AdamWState, params):
-        """Returns (new_params, new_state)."""
+    def update(self, grads, state: AdamWState, params, divisor=1):
+        """Returns (new_params, new_state) for the gradients' sum over
+        ``divisor`` (1: the gradients as given)."""
         flat_p, spec = flatten(params)
-        flat_g = leaves(grads)
-        flat_m, flat_v = leaves(state.m), leaves(state.v)
-        if self.grad_clip is not None:
-            with spans.span("adamw.clip"):
-                gnorm = sum(g.float().square().sum() for g in flat_g).sqrt()
-                scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)
-                flat_g = [g.float() * scale for g in flat_g]
-        with spans.span("adamw.step"):
-            step = state.step + 1
-            t = step.float()
-            b1t = 1.0 - torch.full_like(t, self.b1) ** t
-            b2t = 1.0 - torch.full_like(t, self.b2) ** t
-            new_p, new_m, new_v = [], [], []
-            for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
-                g = g.float()
-                m = self.b1 * m + (1 - self.b1) * g
-                v = self.b2 * v + (1 - self.b2) * g.square()
-                delta = (m / b1t) / ((v / b2t).sqrt() + self.eps)
-                if p.ndim >= 2:  # decoupled decay on matrices only
-                    delta = delta + self.weight_decay * p.float()
-                new_p.append((p.float() - self.lr * delta).to(p.dtype))
-                new_m.append(m)
-                new_v.append(v)
+        new_p, new_m, new_v, step = ops.adamw_update(
+            leaves(grads), flat_p, leaves(state.m), leaves(state.v),
+            state.step, lr=self.lr, b1=self.b1, b2=self.b2, eps=self.eps,
+            weight_decay=self.weight_decay, grad_clip=self.grad_clip,
+            divisor=divisor)
         m_spec, v_spec = flatten(state.m)[1], flatten(state.v)[1]
         return unflatten(spec, new_p), AdamWState(
             step=step, m=unflatten(m_spec, new_m), v=unflatten(v_spec, new_v))

@@ -29,6 +29,7 @@ pytest.importorskip("torch")
 import torch
 
 from repro.kernels.ref import attention_reference as jax_reference
+from repro_torch.kernels import adamw as tadamw
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ssd_scan as tssd
@@ -148,7 +149,7 @@ def _ctype(param: str):
 
 
 def _libraries():
-    return [lib for module in (tfa, tssd) for lib in vars(module).values()
+    return [lib for module in (tfa, tssd, tadamw) for lib in vars(module).values()
             if isinstance(lib, build.KernelLibrary)]
 
 
