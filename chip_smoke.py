@@ -41,7 +41,9 @@ stops with a non-zero exit at the first phase that fails:
    against its plain version (``ops.adamw_update_plain``) on the same
    inputs at the training cells' trees (``ADAMW_CELLS``: the 7B cell's two
    stages of 4 StarCoder2-7B layers and its head, the GPT-like cells' four
-   stages and two heads), clipped and divided by 4 microbatches: the
+   stages and two heads, the Moonlight cell's two stages, the dense layer
+   and 2 MoE layers then 2 MoE layers, and its head; each stage tree of
+   other shapes on its own), clipped and divided by 4 microbatches: the
    parameters within ``ADAMW_PARAM_ULPS`` ulp, the moments within
    ``ADAMW_MOMENT_RTOL`` of each leaf's largest, one launch counted a
    tree; each tree's device time, a single call's, the plain version's and
@@ -319,12 +321,15 @@ SSD_CASES = [
     ("S=8", (1, 8, 4, 32, 16), torch.float32, "zero", False, 2e-3),
 ]
 # phase 3b: the fused AdamW kernel at the training cells' trees, (arch,
-# layers, stages, data nodes): sc2-7b-8l-train-calm's and the gpt300m cells'
-# stage and head trees, clipped, each update's gradients divided by the
+# layers, stages, data nodes): sc2-7b-8l-train-calm's, the gpt300m cells' and
+# moonlight-5l-train-calm's stage and head trees (Moonlight's two stages
+# differ: 25 leaves, 4-D expert leaves, an f32 router and choice bias; then
+# 15), clipped, each update's gradients divided by the
 # cells' 4 microbatches; parameters held to ADAMW_PARAM_ULPS ulp of their
 # dtype at the operands' magnitude, m and v to ADAMW_MOMENT_RTOL of each
 # leaf's largest (the kernel sums the clip norm in another order)
-ADAMW_CELLS = [("starcoder2-7b", 8, 2, 1), ("gwtf-gpt-300m", 16, 4, 2)]
+ADAMW_CELLS = [("starcoder2-7b", 8, 2, 1), ("gwtf-gpt-300m", 16, 4, 2),
+               ("moonlight-16b-a3b", 5, 2, 1)]
 ADAMW_HYPER = dict(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
                    grad_clip=1.0, divisor=4)
 ADAMW_PARAM_ULPS, ADAMW_MOMENT_RTOL = 1, 1e-6
@@ -790,12 +795,19 @@ def phase_adamw_kernel():
     for arch, layers, stages, heads in ADAMW_CELLS:
         cfg = dataclasses.replace(get_config(arch), num_layers=layers)
         gen = torch.Generator()
-        shapes = {"stage": init_stage_params(cfg, 0, stages, gen, device="meta"),
-                  "head": init_head_params(cfg, gen, device="meta")}
+        # the stage trees by their leaves' shapes: (name, tree, how many)
+        trees = {}
+        for s in range(stages):
+            tree = init_stage_params(cfg, s, stages, gen, device="meta")
+            shape = tuple((tuple(t.shape), t.dtype) for t in leaves(tree))
+            name, _, count = trees.get(shape, (f"stage{s}", tree, 0))
+            trees[shape] = (name, tree, count + 1)
+        trees = [*trees.values(),
+                 ("head", init_head_params(cfg, gen, device="meta"), heads)]
         cell = dict(device_ms=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                     params=0, max_abs_err=0.0, param_ulps=0.0, moment_rel=0.0)
-        for name, count in (("stage", stages), ("head", heads)):
-            metas = leaves(shapes[name])
+        for name, tree, count in trees:
+            metas = leaves(tree)
             g = torch.Generator(device="cuda").manual_seed(len(metas) + layers)
             draw = (lambda t, k: torch.randn(  # noqa: E731
                 t.shape, generator=g, device="cuda") * k)

@@ -4,11 +4,19 @@ Port of ``repro.core.runtime.stages``.  A stage's parameters are one
 stacked tree, as in the JAX package (``init_stage_params`` stacks the
 blocks along a leading axis): a norm scale is (L, D), so AdamW's
 ``ndim >= 2`` rule decays it there as in JAX, and checkpoint leaves line
-up with the JAX package's.  ``stage_forward`` unbinds the stack into one
-view per layer for ``transformer._apply_block`` and runs causal attention
-through ``_online_attention`` and an SSM layer's scan through
-``ssd_chunked`` (``use_kernel=False``, as the JAX stage does: neither
-kernel has a backward).
+up with the JAX package's.  A model whose leading layers hold a dense MLP
+in place of the experts (``first_dense_layers``, Moonlight's first layer)
+has blocks of two kinds: its stage tree is ``{"dense": stack, "moe":
+stack}``, each kind present stacked on its own (dense layers come first);
+every other model's stage tree is the one stack.  ``stage_forward``
+unbinds each stack into one view per layer for
+``transformer._apply_block`` and runs causal attention through
+``_online_attention`` and an SSM layer's scan through ``ssd_chunked``
+(``use_kernel=False``, as the JAX stage does: neither kernel has a
+backward).  An MoE layer runs the token-routed experts (``moe_impl=
+"ragged"``: the work of the chosen experts only, no host sync on the
+card), where the JAX stage runs every expert on every token; the two
+compute the same function.
 
 * ``forward_fused(s, params, x)`` — one forward under autograd on a
   detached input and detached parameter leaves that require grad.  The
@@ -40,7 +48,7 @@ from typing import Any, Dict, List, Tuple
 import torch
 
 from repro_torch.models import layers as L
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, dense_layer_config
 from repro_torch.models.transformer import (DTYPES, _apply_block, _init_block,
                                             unstack_blocks)
 from repro_torch.tree import flatten, tree_map, unflatten
@@ -58,10 +66,22 @@ def stage_bounds(cfg: ModelConfig, stage: int, num_stages: int):
     return lo, hi
 
 
+def stage_kinds(cfg: ModelConfig, lo: int, hi: int) -> List[Tuple[str, range]]:
+    """Layers [lo, hi) as runs of one kind each, ``("dense", layers)``
+    then ``("moe", layers)``, the kinds present; ``[("", range(lo,
+    hi))]`` for a model of one kind of block."""
+    if not cfg.first_dense_layers:
+        return [("", range(lo, hi))]
+    cut = min(max(cfg.first_dense_layers, lo), hi)
+    runs = [("dense", range(lo, cut)), ("moe", range(cut, hi))]
+    return [(kind, layers) for kind, layers in runs if len(layers)]
+
+
 def init_stage_params(cfg: ModelConfig, stage: int, num_stages: int,
                       generator: torch.Generator, device="cpu"):
     """Blocks [lo, hi) of the model as one stage, stacked along a leading
-    layer axis, drawn from ``generator`` at the JAX package's scales."""
+    layer axis (a stack a kind, ``stage_kinds``), drawn from ``generator``
+    at the JAX package's scales."""
     lo, hi = stage_bounds(cfg, stage, num_stages)
     dtype = DTYPES[cfg.param_dtype]
     if hi == lo:
@@ -70,19 +90,33 @@ def init_stage_params(cfg: ModelConfig, stage: int, num_stages: int,
         # ``generator`` untouched)
         block = _init_block(torch.Generator(device=device), cfg, dtype, device)
         return tree_map(lambda t: t.new_empty((0, *t.shape)), block)
-    blocks = [_init_block(generator, cfg, dtype, device) for _ in range(hi - lo)]
-    return tree_map(lambda *ts: torch.stack(ts), *blocks)
+    tree = {}
+    for kind, layers in stage_kinds(cfg, lo, hi):
+        kind_cfg = dense_layer_config(cfg) if kind == "dense" else cfg
+        blocks = [_init_block(generator, kind_cfg, dtype, device)
+                  for _ in layers]
+        tree[kind] = tree_map(lambda *ts: torch.stack(ts), *blocks)
+    return tree.pop("") if "" in tree else tree
 
 
 def stage_forward(stage_params, x, cfg: ModelConfig):
-    """The stage's blocks in order (``unstack_blocks``' per-layer views);
-    an MoE block runs the dense experts and drops its auxiliary loss, as
-    the JAX stage does."""
+    """The stage's blocks in order (``unstack_blocks``' per-layer views of
+    each kind's stack, the ``dense`` stack's on ``dense_layer_config``);
+    an MoE block runs the token-routed experts and drops its auxiliary
+    loss, as the JAX stage drops it.  A block's position in the stage keys
+    its expert-load counter (``moe.apply_moe``'s ``layer``)."""
     positions = torch.arange(x.shape[1], device=x.device)
-    for bp in unstack_blocks(stage_params):
-        x, _ = _apply_block(bp, x, cfg, positions=positions, window=None,
-                            cache=None, write_index=None, kv_valid=None,
-                            use_kernel=False, moe_impl="dense")
+    trees = ([(dense_layer_config(cfg) if k == "dense" else cfg, stage_params[k])
+              for k in ("dense", "moe") if k in stage_params]
+             if cfg.first_dense_layers else [(cfg, stage_params)])
+    i = 0
+    for kind_cfg, tree in trees:
+        for bp in unstack_blocks(tree):
+            x, _ = _apply_block(bp, x, kind_cfg, positions=positions,
+                                window=None, cache=None, write_index=None,
+                                kv_valid=None, use_kernel=False,
+                                moe_impl="ragged", layer=i)
+            i += 1
     return x
 
 

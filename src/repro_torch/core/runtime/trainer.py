@@ -10,7 +10,9 @@ and labels are copied to the device from pageable host memory.
 ``IterationResult.host_syncs`` counts these blocking round trips where
 each is made, and ``repro_torch.spans`` marks the iteration's phases
 (``churn``, ``plan``, ``resolve``, ``execute``, ``commit``) and each
-chunk's dispatches.
+chunk's dispatches.  With tracing on, an MoE model's expert-load
+counters are read once an iteration, after the numeric pass, into
+``IterationResult.expert_load_max`` (one more host sync, counted).
 
 `RuntimeTrainer` wires the layers together into the paper's iteration
 (Sec. V-E):
@@ -70,6 +72,7 @@ from repro_torch.core.sim.faults import (BernoulliChurn, ChurnContext,
                                          ChurnModel, adversarial_plan)
 from repro_torch.core.sim.policies import GWTFPolicy, RoutingPolicy
 from repro_torch.core.sim.timeline import FaultTimeline, record_injections
+from repro_torch.models import moe as MOE
 from repro_torch.models.transformer import DTYPES
 from repro_torch.optim.adamw import AdamW
 from repro_torch.tree import leaves, tree_map
@@ -218,6 +221,10 @@ class IterationResult:
                                   # still count as completed)
     host_syncs: int = 0           # blocking host-device round trips of
                                   # the numeric pass (`HostSyncs`)
+    expert_load_max: float = 0.0  # traced runs of an MoE model: the worst
+                                  # layer's most-loaded expert over its
+                                  # mean (`moe.drain_expert_load_max`);
+                                  # 0.0 with tracing off
 
 
 def _batch(mbs: List[dict], device, syncs: HostSyncs
@@ -494,6 +501,9 @@ class RuntimeTrainer:
                                          else [])
                 mean_loss = self._execute(res, wire)
                 self.last_wire_bytes = wire.bytes if wire is not None else 0
+            load_max = MOE.drain_expert_load_max() if spans.enabled() else None
+            if load_max is not None:
+                self._syncs.n += 1
 
             with spans.span("commit"):
                 # ---- commit crashes for the next iteration -----------
@@ -527,7 +537,8 @@ class RuntimeTrainer:
                 wire_codecs=tuple(self.last_wire_codecs),
                 deadline_requeues=res.deadline_requeues,
                 grads_flagged=self._grads_flagged,
-                host_syncs=self._syncs.n)
+                host_syncs=self._syncs.n,
+                expert_load_max=load_max or 0.0)
 
     # ------------------------------------------------------------------
     # Numeric pass

@@ -69,7 +69,8 @@ from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
                                       train_shardings)
 from repro_torch.launch.trace_analysis import (StepCosts, analyze_step,
                                                count_flops)
-from repro_torch.models.config import INPUT_SHAPES, InputShape, ModelConfig
+from repro_torch.models.config import (INPUT_SHAPES, InputShape, ModelConfig,
+                                       refuse_mla)
 from repro_torch.models.transformer import init_cache, is_vlm, model_view
 from repro_torch.optim.adamw import AdamW
 from repro_torch.parallel.sharding import ShardingRules, distribute
@@ -259,6 +260,7 @@ def run_one(arch: str, shape_name: Union[str, InputShape], *, multi_pod: bool,
     place of ``arch``'s (a reduced one, in the tests); ``device`` is the
     mesh's device type (the fake shards allocate nothing on it)."""
     cfg = cfg or get_config(arch)
+    refuse_mla(cfg, "the dry run")
     shape = (shape_name if isinstance(shape_name, InputShape)
              else INPUT_SHAPES[shape_name])
     chips = 512 if multi_pod else 256

@@ -30,7 +30,7 @@ from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.core.runtime.stages import with_zeros
 from repro_torch.launch.mesh import mesh_axis_sizes
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, refuse_mla
 from repro_torch.models.transformer import (decode_step, init_cache,
                                             model_view, prefill, train_loss)
 from repro_torch.optim.adamw import AdamW, AdamWState
@@ -72,6 +72,7 @@ def make_train_step(cfg: ModelConfig, opt: Optional[AdamW] = None,
     """grad_accum > 1: batch leaves carry a leading (grad_accum,) dim; the
     microbatches' gradients are summed in f32 and averaged, as JAX's scan
     does, so only one microbatch's activations are live at a time."""
+    refuse_mla(cfg, "the sharded train step")
     opt = opt or AdamW()
 
     def train_step(params, opt_state, batch):

@@ -11,8 +11,9 @@ and LLaMA-like models.  Every field is explicit so a config file under
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -35,6 +36,7 @@ class ModelConfig:
     # --- mlp / norm ---
     mlp_type: str = "swiglu"            # swiglu | geglu | gelu
     norm_type: str = "rmsnorm"          # rmsnorm | layernorm
+    norm_eps: float = 1e-6
 
     # --- ssm (mamba2 / SSD) ---
     ssm_state: int = 0
@@ -48,6 +50,17 @@ class ModelConfig:
     num_experts_per_tok: int = 0
     num_shared_experts: int = 0         # qwen2-moe style shared expert(s)
     router_aux_coef: float = 0.01       # load-balance loss coefficient
+    router_score: str = "softmax"       # softmax | sigmoid (DeepSeek-V3)
+    norm_topk_prob: bool = True         # renormalise the top-k weights
+    routed_scaling_factor: float = 1.0  # times the routed experts' weights
+    first_dense_layers: int = 0         # leading layers with a dense MLP
+    dense_d_ff: int = 0                 # ... of this width
+
+    # --- latent attention (MLA, DeepSeek-V2/V3; on when kv_lora_rank > 0)
+    kv_lora_rank: int = 0               # the shared K/V latent's width
+    qk_nope_head_dim: int = 0           # a head's query/key width, no RoPE
+    qk_rope_head_dim: int = 0           # ... with RoPE (one key all heads share)
+    v_head_dim: int = 0
 
     # --- vlm (cross-attention image layers) ---
     cross_attn_every: int = 0           # every k-th layer is cross-attn (0 = none)
@@ -89,6 +102,20 @@ class ModelConfig:
     def is_moe(self) -> bool:
         return self.num_experts > 0
 
+    @property
+    def has_mla(self) -> bool:
+        return self.kv_lora_rank > 0
+
+    @property
+    def mla_attention_params(self) -> int:
+        """One MLA layer's weights: W_q, W_kva, the latent's norm, W_kvb, W_o."""
+        D, H = self.d_model, self.num_heads
+        qk = self.qk_nope_head_dim + self.qk_rope_head_dim
+        return (D * H * qk + D * (self.kv_lora_rank + self.qk_rope_head_dim)
+                + self.kv_lora_rank
+                + self.kv_lora_rank * H * (self.qk_nope_head_dim + self.v_head_dim)
+                + H * self.v_head_dim * D)
+
     def reduced(self, num_layers: int = 2, d_model: int = 256,
                 max_experts: int = 4) -> "ModelConfig":
         """Smoke-test variant: same family, tiny dims, runnable on CPU."""
@@ -119,6 +146,12 @@ class ModelConfig:
             cross_attn_every=min(self.cross_attn_every, num_layers) if self.cross_attn_every else 0,
             num_image_tokens=min(self.num_image_tokens, 16),
             vision_dim=min(self.vision_dim, 128) if self.vision_dim else 0,
+            first_dense_layers=min(self.first_dense_layers, num_layers - 1),
+            dense_d_ff=max(64, int(self.dense_d_ff * scale)) if self.dense_d_ff else 0,
+            kv_lora_rank=min(self.kv_lora_rank, d_model // 2),
+            qk_nope_head_dim=min(self.qk_nope_head_dim, 32),
+            qk_rope_head_dim=min(self.qk_rope_head_dim, 16),
+            v_head_dim=min(self.v_head_dim, 32),
             param_dtype="float32",
             remat=False,
         )
@@ -127,7 +160,9 @@ class ModelConfig:
         """Analytic parameter count (embeddings included)."""
         D, F, V, L = self.d_model, self.d_ff, self.vocab_size, self.num_layers
         per_layer = 0
-        if self.has_attention:
+        if self.has_mla:
+            per_layer += self.mla_attention_params
+        elif self.has_attention:
             per_layer += D * self.q_dim + 2 * D * self.kv_dim + self.q_dim * D
             if self.qkv_bias:
                 per_layer += self.q_dim + 2 * self.kv_dim
@@ -135,13 +170,18 @@ class ModelConfig:
             di = self.d_inner
             ns, nh = self.ssm_state, self.ssm_heads
             per_layer += D * (2 * di + 2 * ns + nh) + di * D + di  # in/out proj + conv-ish
+        gated = 3 if self.mlp_type in ("swiglu", "geglu") else 2
+        moe_ffn = 0
         if self.is_moe:
-            per_layer += D * self.num_experts                      # router
-            e_ff = 3 * D * F if self.mlp_type in ("swiglu", "geglu") else 2 * D * F
-            per_layer += self.num_experts * e_ff
-            per_layer += self.num_shared_experts * e_ff
+            moe_ffn += D * self.num_experts                        # router
+            if self.router_score == "sigmoid":
+                moe_ffn += self.num_experts                        # choice bias
+            e_ff = gated * D * F
+            moe_ffn += self.num_experts * e_ff
+            moe_ffn += self.num_shared_experts * e_ff
+            per_layer += moe_ffn
         elif F:
-            per_layer += (3 if self.mlp_type in ("swiglu", "geglu") else 2) * D * F
+            per_layer += gated * D * F
         if self.cross_attn_every:
             # cross-attn layers mirror self-attn layers (K/V consume the
             # projected vision embeddings at d_model width) + one vision
@@ -149,8 +189,46 @@ class ModelConfig:
             per_layer_total = per_layer * L + self.vision_dim * D
         else:
             per_layer_total = per_layer * L
+        if self.first_dense_layers:
+            # the leading layers hold a dense MLP in place of the experts
+            per_layer_total += self.first_dense_layers * (
+                gated * D * self.dense_d_ff - moe_ffn)
         embed = V * D * (1 if self.tie_embeddings else 2)
         return per_layer_total + embed + 2 * L * D  # + norms
+
+
+# The fields that the JAX package's ``ModelConfig`` lacks: a model only the
+# port runs (``configs.PORT_ONLY_IDS``) sets them; every config of the JAX
+# registry leaves them at their defaults.
+PORT_ONLY_FIELDS = ("norm_eps", "router_score", "norm_topk_prob",
+                    "routed_scaling_factor", "first_dense_layers", "dense_d_ff",
+                    "kv_lora_rank", "qk_nope_head_dim", "qk_rope_head_dim",
+                    "v_head_dim")
+
+
+def port_only_defaults() -> Dict[str, Any]:
+    """Each port-only field's default."""
+    return {f.name: f.default for f in dataclasses.fields(ModelConfig)
+            if f.name in PORT_ONLY_FIELDS}
+
+
+@functools.lru_cache(maxsize=None)
+def dense_layer_config(cfg: ModelConfig) -> ModelConfig:
+    """The config of ``cfg``'s leading dense layers (``first_dense_layers``):
+    the same attention, with a dense MLP of width ``dense_d_ff``."""
+    return dataclasses.replace(cfg, num_experts=0, num_experts_per_tok=0,
+                               num_shared_experts=0, d_ff=cfg.dense_d_ff,
+                               first_dense_layers=0)
+
+
+def refuse_mla(cfg: ModelConfig, what: str) -> None:
+    """Raise for a path that has no latent attention yet: ``init_cache``
+    (serving needs the latent cache, so every serving path stops there),
+    the sharded train step and the dry run (no MLA rules)."""
+    if cfg.has_mla:
+        raise NotImplementedError(
+            f"{cfg.name}: {what} does not take latent attention (MLA) yet; "
+            "it trains through the staged runtime (--mode gwtf) only")
 
 
 # ---------------------------------------------------------------------------

@@ -62,7 +62,8 @@ def init_norm(cfg: ModelConfig, device):
     return p
 
 
-def apply_norm(p, x, cfg: ModelConfig, eps: float = 1e-6):
+def apply_norm(p, x, cfg: ModelConfig):
+    eps = cfg.norm_eps
     xf = x.float()
     if cfg.norm_type == "layernorm":
         mu = xf.mean(dim=-1, keepdim=True)

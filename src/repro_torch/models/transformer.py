@@ -6,7 +6,9 @@ Port of ``repro.models.transformer``, all six arch families:
            tinyllama, qwen1.5, starcoder2, gemma]
 * ssm    — attention-free Mamba2/SSD blocks              [mamba2-130m]
 * hybrid — attention and SSD heads in parallel per layer  [hymba]
-* moe    — attention + routed experts (+ shared)  [granite-moe, qwen2-moe]
+* moe    — attention + routed experts (+ shared)  [granite-moe, qwen2-moe;
+           moonlight: latent attention (``mla.py``), a sigmoid router, and
+           ``first_dense_layers`` leading layers with a dense MLP]
 * vlm    — self-attention blocks with interleaved gated cross-attention
            to stub patch embeddings               [llama-3.2-vision]
 * audio  — the dense decoder over stub codec-frame embeddings [musicgen]
@@ -43,9 +45,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device, spans
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import (ModelConfig, dense_layer_config,
+                                       refuse_mla)
 from repro_torch.parallel.sharding import project, shard
 from repro_torch.tree import flatten, tree_map, unflatten
 
@@ -78,8 +82,15 @@ class ParamTree(nn.Module):
 class Block(ParamTree):
     """One decoder layer's parameters: ln1, attn, ln2, mlp (dense, vlm,
     audio); ln1, mamba (ssm); ln1, attn, mamba, ln2, mlp (hybrid); ln1,
-    attn, ln2, moe (moe); a VLM cross layer's ln1, xattn, gate_attn, ln2,
-    mlp, gate_mlp (the gates f32 scalars)."""
+    attn, ln2, moe (moe; a leading dense layer's mlp in place of moe); a
+    VLM cross layer's ln1, xattn, gate_attn, ln2, mlp, gate_mlp (the gates
+    f32 scalars)."""
+
+
+def layer_config(cfg: ModelConfig, layer: int) -> ModelConfig:
+    """The config layer ``layer`` runs: ``dense_layer_config`` for the
+    first ``first_dense_layers``, else ``cfg``."""
+    return dense_layer_config(cfg) if layer < cfg.first_dense_layers else cfg
 
 
 def is_vlm(cfg: ModelConfig) -> bool:
@@ -133,7 +144,8 @@ def _init_block(generator, cfg: ModelConfig, dtype, device):
     if cfg.arch_type == "ssm":
         p["mamba"] = SSM.init_mamba(generator, cfg, dtype, device)
         return p
-    p["attn"] = L.init_attention(generator, cfg, dtype, device)
+    p["attn"] = (MLA.init_mla(generator, cfg, dtype, device) if cfg.has_mla
+                 else L.init_attention(generator, cfg, dtype, device))
     if cfg.arch_type == "hybrid":
         p["mamba"] = SSM.init_mamba(generator, cfg, dtype, device)
     p["ln2"] = L.init_norm(cfg, device)
@@ -173,8 +185,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         params["vision_proj"] = {"w_proj": L.dense_init(
             generator, (cfg.vision_dim, cfg.d_model), dtype, dev)}
     else:
-        params["blocks"] = [_init_block(generator, cfg, dtype, dev)
-                            for _ in range(cfg.num_layers)]
+        params["blocks"] = [_init_block(generator, layer_config(cfg, i), dtype, dev)
+                            for i in range(cfg.num_layers)]
     return Transformer(cfg, params)
 
 
@@ -243,7 +255,9 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     whatever ``dtype`` (which the conv state takes).  A VLM's self layers
     hold (nb, k-1, B, C, kv_dim); its cross layers hold nothing.
     kv_heads_override > num_kv_heads pads the cache's head dim so it
-    shards evenly over the model axis (launch/specs.pad_kv_heads)."""
+    shards evenly over the model axis (launch/specs.pad_kv_heads).  An MLA
+    model is refused: it needs the latent cache, which is not here."""
+    refuse_mla(cfg, "init_cache")
     dev = resolve_device(device)
     if is_vlm(cfg):
         nb, k = superblocks(cfg)
@@ -278,14 +292,16 @@ def _layer_cache(cache, idx):
 
 def _apply_block(bp: Block, x, cfg: ModelConfig, *, positions, window, cache,
                  write_index, kv_valid, use_kernel: bool = True,
-                 moe_impl: str = "dense"):
+                 moe_impl: str = "dense", layer: Optional[int] = None):
     """One decoder layer; returns ``(x, aux)``, ``aux`` the MoE router's
     auxiliary loss (0.0 in other layers).  ``cache`` is this layer's slice
     (``{"attn": ..., "ssm": ...}`` as the model has them), written in place.
     ``bp`` is anything with the layer's parameter dicts as attributes (a
     ``Block``, or one layer's view of a stacked tree); ``use_kernel`` goes
-    to ``apply_attention`` and ``apply_mamba``, ``moe_impl`` to
-    ``apply_moe``."""
+    to ``apply_attention`` and ``apply_mamba``, ``moe_impl`` and ``layer``
+    (the layer's position in its stage) to ``apply_moe``.  ``cfg`` is the
+    layer's own (``layer_config``).  Latent attention (``cfg.has_mla``)
+    takes no cache."""
     with spans.span("norm"):
         h = L.apply_norm(bp.ln1, x, cfg)
     if cfg.arch_type == "ssm":
@@ -295,11 +311,14 @@ def _apply_block(bp: Block, x, cfg: ModelConfig, *, positions, window, cache,
         return x + out, 0.0
 
     with spans.span("attention"):
-        a_out, _ = L.apply_attention(bp.attn, h, cfg, positions=positions,
-                                     window=window,
-                                     cache=cache["attn"] if cache else None,
-                                     write_index=write_index,
-                                     kv_valid=kv_valid, use_kernel=use_kernel)
+        if cfg.has_mla:
+            a_out = MLA.apply_mla(bp.attn, h, cfg, positions=positions)
+        else:
+            a_out, _ = L.apply_attention(bp.attn, h, cfg, positions=positions,
+                                         window=window,
+                                         cache=cache["attn"] if cache else None,
+                                         write_index=write_index,
+                                         kv_valid=kv_valid, use_kernel=use_kernel)
     if cfg.arch_type == "hybrid":
         s_out, _ = SSM.apply_mamba(bp.mamba, h, cfg,
                                    cache=cache["ssm"] if cache else None,
@@ -311,7 +330,8 @@ def _apply_block(bp: Block, x, cfg: ModelConfig, *, positions, window, cache,
         h2 = L.apply_norm(bp.ln2, x, cfg)
     if cfg.is_moe:
         with spans.span("moe"):
-            m_out, aux = MOE.apply_moe(bp.moe, h2, cfg, impl=moe_impl)
+            m_out, aux = MOE.apply_moe(bp.moe, h2, cfg, impl=moe_impl,
+                                       layer=layer)
     else:
         with spans.span("mlp"):
             m_out, aux = L.apply_mlp(bp.mlp, h2, cfg), 0.0
@@ -372,7 +392,8 @@ def forward_hidden(model, cfg: ModelConfig, *, tokens=None, embeds=None,
     do_remat = (cfg.remat if remat is None else remat) and torch.is_grad_enabled()
 
     def block(bp, x, idx):
-        return _apply_block(bp, x, cfg, positions=positions, window=window,
+        lcfg = layer_config(cfg, idx) if isinstance(idx, int) else cfg
+        return _apply_block(bp, x, lcfg, positions=positions, window=window,
                             cache=_layer_cache(cache, idx),
                             write_index=write_index, kv_valid=kv_valid,
                             use_kernel=use_kernel, moe_impl=moe_impl)

@@ -88,6 +88,17 @@ def span(name: str, **ids: object):
     return Span(name, ids)
 
 
+def ids() -> Dict[str, object]:
+    """The ids of the innermost span open on this thread ({} if none)."""
+    stack = _stack()
+    return stack[-1].ids if stack else {}
+
+
+def enabled() -> bool:
+    """Whether tracing is on."""
+    return _on
+
+
 def enable() -> None:
     global _on
     _on = True

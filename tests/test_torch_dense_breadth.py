@@ -30,7 +30,8 @@ from repro.configs import get_config as jax_config
 from repro.core.runtime.serving import serving_inputs as jax_serving_inputs
 from repro_torch.configs import ARCH_IDS as PORT_IDS, get_config
 from repro_torch.launch import serve as tserve
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import (PORT_ONLY_FIELDS, ModelConfig,
+                                       port_only_defaults)
 from repro_torch.weights import params_from_jax
 from test_torch_serve import LOGITS, _jax_generate, _run_both
 
@@ -92,10 +93,10 @@ def test_head_dim_256_variant_matches_jax():
 
 def test_get_config_every_arch_id():
     """Every id of the JAX registry: all 13 configs equal JAX's, field for
-    field; none is refused."""
+    field, the port-only fields at their defaults; none is refused."""
     for arch in ARCH_IDS:
-        assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(
-            jax_config(arch))
+        assert dataclasses.asdict(get_config(arch)) == {
+            **dataclasses.asdict(jax_config(arch)), **port_only_defaults()}
     assert PORT_IDS == ARCH_IDS                   # the same ids, in order
     for alias in ("qwen1.5-4b", "gemma-7b", "starcoder2-7b", "gwtf-llama-7b",
                   "granite-moe-3b-a800m", "qwen2-moe-a2.7b", "musicgen-medium",
@@ -123,8 +124,11 @@ def test_copied_config_equals_jax(module):
     rewritten."""
     cfg, jcfg = get_config(module), jax_config(module)
     for f in dataclasses.fields(ModelConfig):
-        assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
-    assert dataclasses.asdict(cfg.reduced()) == dataclasses.asdict(jcfg.reduced())
+        want = port_only_defaults()[f.name] if f.name in PORT_ONLY_FIELDS \
+            else getattr(jcfg, f.name)
+        assert getattr(cfg, f.name) == want, f.name
+    assert dataclasses.asdict(cfg.reduced()) == {
+        **dataclasses.asdict(jcfg.reduced()), **port_only_defaults()}
     original = re.sub(r"^from repro\.", "from repro_torch.",
                       (SRC / "repro" / "configs" / f"{module}.py").read_text(),
                       flags=re.M)

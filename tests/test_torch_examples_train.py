@@ -28,6 +28,7 @@ import torch
 from repro.core.runtime import cache as j_cache
 from repro.models.config import ModelConfig as JModelConfig
 from repro_torch.core.runtime import cache as t_cache
+from repro_torch.models.config import PORT_ONLY_FIELDS
 from repro_torch.weights import initial_params_from_jax
 from test_torch_examples import load, output
 
@@ -47,7 +48,8 @@ def one_torch_thread():
 def jax_params(monkeypatch):
     """Port trainers start from the JAX package's draw for their config."""
     def from_jax(cfg, num_stages, seed=0, device="cuda"):
-        jcfg = JModelConfig(**dataclasses.asdict(cfg))
+        jcfg = JModelConfig(**{k: v for k, v in dataclasses.asdict(cfg).items()
+                               if k not in PORT_ONLY_FIELDS})
         tree = jax.tree.map(np.asarray,
                             j_cache.initial_params(jcfg, num_stages, seed))
         return initial_params_from_jax(cfg, tree, device=device)

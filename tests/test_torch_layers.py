@@ -19,6 +19,7 @@ import torch
 from repro.configs import get_config as jax_config
 from repro.models import layers as JL
 from repro_torch.configs import get_config
+from repro_torch.models.config import port_only_defaults
 from repro_torch.models import layers as TL
 
 LAYER = dict(rtol=1e-5, atol=1e-5)
@@ -65,10 +66,11 @@ def _close(got, want, tol):
 
 def test_port_configs_equal_jax_configs():
     for arch in PORTED_ARCHS:
-        assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(
-            jax_config(arch))
-        assert dataclasses.asdict(_cfg(arch)) == dataclasses.asdict(
-            jax_config(arch).reduced(num_layers=2, d_model=256))
+        assert dataclasses.asdict(get_config(arch)) == {
+            **dataclasses.asdict(jax_config(arch)), **port_only_defaults()}
+        assert dataclasses.asdict(_cfg(arch)) == {
+            **dataclasses.asdict(jax_config(arch).reduced(num_layers=2, d_model=256)),
+            **port_only_defaults()}
 
 
 def test_unknown_arch_raises_key_error():

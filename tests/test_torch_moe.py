@@ -13,8 +13,9 @@
   step logits within 2e-4, token streams equal;
 * bf16 MoE leaves, ``shared`` included, load bit for bit under their JAX
   names;
-* the staged runtime trains a reduced MoE model as JAX's does (dense
-  experts, the auxiliary loss dropped): counters, chains and timelines
+* the staged runtime trains a reduced MoE model as JAX's does (JAX's
+  stage runs the dense experts, the port's the token-routed ones, the same
+  function; both drop the auxiliary loss): counters, chains and timelines
   equal, losses within the trainer tests' tolerances.
 """
 import dataclasses
@@ -153,8 +154,9 @@ def test_params_from_jax_checks_nested_layer_axis():
 
 def test_staged_runtime_trains_moe_as_jax():
     """JAX's ``stage_forward`` runs an MoE block with the dense experts and
-    drops the auxiliary loss; so does the port's.  Reduced qwen2-moe (a
-    shared expert, nested under ``moe``) at churn 0.2 over three
+    drops the auxiliary loss; the port's runs the token-routed experts,
+    which compute the same function, and drops it too.  Reduced qwen2-moe
+    (a shared expert, nested under ``moe``) at churn 0.2 over three
     iterations, from JAX's parameters."""
     jcfg, tcfg = (dataclasses.replace(
         get("qwen2-moe-a2.7b").reduced(num_layers=4, d_model=128),
