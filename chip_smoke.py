@@ -48,7 +48,15 @@ stops with a non-zero exit at the first phase that fails:
    ``ADAMW_MOMENT_RTOL`` of each leaf's largest, one launch counted a
    tree; each tree's device time, a single call's, the plain version's and
    the byte bound (24 B a bf16 parameter at 3.35 TB/s), and each cell's
-   sums;
+   sums; 3c. the split-KV decode attention (``decode_attention.cu``, two
+   launches a call) against its plain version (``ops.decode_attention_plain``)
+   at the serve cells' shapes (``DECODE_CASES``: StarCoder2-7B's 36/4 heads
+   of 128, bf16 q, f32 cache, 64 rows at 1,056 live slots of 1,088 and 32
+   rows at 4,064 of 4,096, the middle of each cell's 64 steps): each
+   output within one bf16 ulp at its row's magnitude, one launch counted a
+   call, the splits the plan picked, the kernel's device time, a single
+   call's, the plain version's and the byte bound (the live K and V read
+   once at 3.35 TB/s);
 4. ``gwtf-llama-300m``, ``tinyllama-1.1b``, ``mamba2-130m``,
    ``hymba-1.5b``, ``qwen1.5-4b``, ``starcoder2-7b``, ``gwtf-llama-7b``,
    ``gemma-7b`` (head_dim 256), ``granite-moe-3b-a800m``,
@@ -60,7 +68,8 @@ stops with a non-zero exit at the first phase that fails:
    card at a time, each kernel's launches counted over exactly each serve
    (the main path) and held to one per self-attention or SSM layer of the
    prefill (none from cross-attention), every flash launch on the bf16
-   tensor-core body, then where the time goes: wall time, device busy
+   tensor-core body, the decode attention kernel once per self-attention
+   layer of each decode step, then where the time goes: wall time, device busy
    time, the top kernels and the port's own kernels (each with its share
    of the busy time) of one prefill and of 8 decode steps, from
    ``torch.profiler`` (the MoE models' with the device's activity only),
@@ -70,7 +79,8 @@ stops with a non-zero exit at the first phase that fails:
    every served config, a ``gemma-7b`` variant that keeps head_dim 256 and
    a VLM of two superblocks with its gates set nonzero, on the same
    weights and stub inputs: logits within 1e-3, greedy streams equal, one
-   launch per self-attention layer on the f32 body;
+   launch per self-attention layer on the f32 body and one decode
+   attention launch per self-attention layer of each decode step;
 6. training, the port's second main path: ``gwtf-llama-300m`` at full
    width (16 layers, bf16 params) through ``repro_torch.launch.train``'s
    ``build_gwtf`` and ``train_iteration``, 4 stages x 3 relays of capacity
@@ -333,6 +343,10 @@ ADAMW_CELLS = [("starcoder2-7b", 8, 2, 1), ("gwtf-gpt-300m", 16, 4, 2),
 ADAMW_HYPER = dict(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
                    grad_clip=1.0, divisor=4)
 ADAMW_PARAM_ULPS, ADAMW_MOMENT_RTOL = 1, 1e-6
+# phase 3c: the serve cells' decode attention at the middle of their 64
+# steps: name, (B, C, kv_valid, H, KH, hd); bf16 q, f32 cache
+DECODE_CASES = [("sc2-7b-8l-serve-decode", (64, 1088, 1056, 36, 4, 128)),
+                ("sc2-7b-8l-serve-long", (32, 4096, 4064, 36, 4, 128))]
 # phase 2's sweep of the f32 body's edges, untimed, each held at 2e-4
 # against the plain version: every D, lengths that end inside a warp's 16
 # rows and inside a KV tile, causal or not, windows from 1 key to more than
@@ -863,10 +877,69 @@ def phase_adamw_kernel():
     return results[ADAMW_CELLS[0][0]]
 
 
+def row_ulps(got, want) -> float:
+    """The largest gap of ``got`` from ``want`` in bf16 ulps at the
+    magnitude of each row (the largest element of its last dim)."""
+    x, y = got.double(), want.double()
+    row = y.abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
+    return float(((x - y).abs() / torch.exp2(torch.floor(torch.log2(row)) - 7)).max())
+
+
+def phase_decode_attention_kernel():
+    """3c: ``ops.decode_attention`` against ``ops.decode_attention_plain``
+    at the serve cells' shapes; returns the decode cell's numbers for the
+    kernels line."""
+    from repro_torch.kernels import decode_attention as dec
+    print("== 3c. split-KV decode attention against its plain version at the "
+          "serve cells' shapes")
+    results = {}
+    for name, (B, C, kv_valid, H, KH, hd) in DECODE_CASES:
+        g = torch.Generator(device="cuda").manual_seed(C + kv_valid)
+        q = torch.randn(B, 1, H, hd, generator=g, device="cuda").bfloat16()
+        ck = torch.randn(B, C, KH * hd, generator=g, device="cuda") * 2
+        cv = torch.randn(B, C, KH * hd, generator=g, device="cuda")
+        before = ops.decode_attention.launches
+        got = ops.decode_attention(q, ck, cv, kv_valid, KH, hd)
+        if ops.decode_attention.launches != before + 1:
+            raise SystemExit(f"3c {name}: decode_attention.launches rose by "
+                             f"{ops.decode_attention.launches - before}")
+        want = ops.decode_attention_plain(q, ck, cv, kv_valid, KH, hd)
+        ulps = row_ulps(got, want)
+        err = float((got.float() - want.float()).abs().max())
+        if not ulps <= 1.0:
+            raise SystemExit(f"3c {name}: {ulps} bf16 ulp from the plain "
+                             f"version, limit 1")
+        del got, want
+        kernel = lambda: ops.decode_attention(  # noqa: E731
+            q, ck, cv, kv_valid, KH, hd)
+        plain = lambda: ops.decode_attention_plain(  # noqa: E731
+            q, ck, cv, kv_valid, KH, hd)
+        dev = device_ms(kernel, reps=50)
+        ms, plain_ms = median_ms(kernel, reps=20), median_ms(plain, reps=5)
+        nbytes = (2 * B * KH * kv_valid * hd * ck.element_size()
+                  + 2 * q.numel() * q.element_size())
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        splits, chunk = dec.plan(B * KH, kv_valid)
+        share = f"{bound_ms / dev:.1%} of the bound" if dev else "not taken"
+        print(f"{name}: B={B} C={C} kv_valid={kv_valid} H/KH={H}/{KH} hd={hd} "
+              f"bf16 q, f32 cache, {splits} splits of {chunk} slots "
+              f"({splits * B * KH} blocks); {ulps:.3g} bf16 ulp at the row's "
+              f"magnitude (largest difference {err:.3g}); kernel device "
+              f"{show(dev)} ({share}), a single call {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} "
+              f"MB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+        results[name] = dict(max_abs_err=err, bf16_ulps=ulps, device_ms=dev,
+                             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+        del q, ck, cv, kernel, plain
+        torch.cuda.empty_cache()
+    return results[DECODE_CASES[0][0]]
+
+
 def reset_launches():
     ops.flash_attention.launches = 0
     ops.ssd_scan.launches = 0
     ops.adamw_update.launches = 0
+    ops.decode_attention.launches = 0
     for body in fa.BODY_LAUNCHES:
         fa.BODY_LAUNCHES[body] = 0
 
@@ -883,6 +956,18 @@ def prefill_launches(cfg) -> dict:
     nb, k = superblocks(cfg) if is_vlm(cfg) else (cfg.num_layers, 2)
     return {"flash_attention": nb * (k - 1) if cfg.has_attention else 0,
             "ssd_scan": cfg.num_layers if cfg.has_ssm else 0}
+
+
+def check_decode_launches(cfg, steps: int) -> int:
+    """The decode attention kernel's launches since the last reset: one a
+    self-attention layer of each of ``steps`` decode steps (the layers the
+    prefill attends through flash)."""
+    want = prefill_launches(cfg)["flash_attention"] * steps
+    if ops.decode_attention.launches != want:
+        raise SystemExit(f"{cfg.name}: decode_attention.launches "
+                         f"{ops.decode_attention.launches} over {steps} decode "
+                         f"steps, want {want}")
+    return want
 
 
 def run_serve(arch: str):
@@ -929,6 +1014,7 @@ def run_serve(arch: str):
     if launches != want:
         raise SystemExit(f"kernel launches {launches} over the serve, want "
                          f"{want}")
+    launches["decode_attention"] = check_decode_launches(cfg, SERVE["gen"])
     if bodies[fa.LIBRARY.name]:     # bf16 serves: every launch on the sm90 body
         raise SystemExit(f"flash bodies {bodies}: the f32 body ran in a serve")
     if out.tokens.shape != (B, SERVE["gen"] + 1):
@@ -1087,6 +1173,7 @@ def phase_gpu_vs_cpu():
                 or fa.BODY_LAUNCHES[fa.LIBRARY.name] != want["flash_attention"]):
             raise SystemExit(f"{cfg.name}: launches {read_launches()}, bodies "
                              f"{fa.BODY_LAUNCHES}, want {want} on the f32 body")
+        decode = check_decode_launches(cfg, 8)
         cpu, gpu = runs["cpu"], runs["cuda"]
         torch.testing.assert_close(gpu.logits.cpu(), cpu.logits, rtol=1e-3,
                                    atol=1e-3)
@@ -1100,7 +1187,7 @@ def phase_gpu_vs_cpu():
         print(f"{cfg.name} (head_dim {cfg.head_dim}, {inputs}): logits "
               f"max_abs_err {err:.3g} (tol 1e-3) over {cpu.logits.shape[0]} "
               f"steps, greedy streams equal, launches {read_launches()} on the "
-              f"f32 body")
+              f"f32 body, decode attention {decode}")
 
 
 def check_adamw_launches(label: str, calm: int, iters: int, trees: int,
@@ -2243,12 +2330,14 @@ def main(argv=None) -> int:
     phase_kernel_sweep()
     ssd_timings = phase_ssd_kernel()
     adamw_timings = phase_adamw_kernel()
+    decode_timings = phase_decode_attention_kernel()
     torch.cuda.empty_cache()
-    took("1-3b")
+    took("1-3c")
 
     # each serve is one main path, counted from 0 with its model alone
     # on the card; the kernels line reports their sums
-    launches = {"flash_attention": 0, "ssd_scan": 0, "adamw_update": 0}
+    launches = {"flash_attention": 0, "ssd_scan": 0, "adamw_update": 0,
+                "decode_attention": 0}
     for arch in SERVE_ARCHS:
         for name, n in run_serve(arch).items():
             launches[name] += n
@@ -2317,6 +2406,11 @@ def main(argv=None) -> int:
         dict(name="adamw_update", route="cuda",
              source="src/repro_torch/kernels/csrc/adamw.cu", replaces=None,
              launches=launches["adamw_update"], **adamw_timings),
+        # phase 3c's decode cell; launches over phase 4's serves
+        dict(name="decode_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/decode_attention.cu",
+             replaces=None, launches=launches["decode_attention"],
+             **decode_timings),
     ]
     print("kernels: " + ", ".join(
         f"{k['name']} launches={k['launches']} max_abs_err={k['max_abs_err']:.3g}"

@@ -4,7 +4,8 @@ A CPU tensor runs the kernel's plain PyTorch version; a CUDA tensor
 launches the hand-written kernel, or raises.  There is no fallback from
 the one to the other.  ``adamw_update`` also gives fake and meta leaves,
 which no kernel here takes, to its plain version, and DTensor leaves to
-the kernel or the plain version as their local shards would go.
+the kernel or the plain version as their local shards would go;
+``decode_attention`` gives fake and meta tensors to its plain version.
 """
 from __future__ import annotations
 
@@ -12,9 +13,11 @@ import torch
 
 from repro_torch import spans
 from repro_torch.kernels import adamw as _adamw
+from repro_torch.kernels import decode_attention as _dec
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ssd_scan as _ssd
-from repro_torch.kernels.ref import attention_reference, ssd_chunked
+from repro_torch.kernels.ref import NEG_INF, attention_reference, ssd_chunked
+from repro_torch.parallel.sharding import split_last
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window=None):
@@ -49,6 +52,78 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
 
 
 flash_attention.launches = 0
+
+
+def decode_attention_plain(q, ck, cv, kv_valid: int, KH: int, hd: int,
+                           block: int = 2048, kv_heads=None):
+    """Single-token attention against the KV cache, online softmax over
+    chunks of ``min(block, C)`` slots: the plain version of
+    ``decode_attention``, on any device.
+
+    q: (B, 1, H, hd); ck/cv: (B, C, KH*hd) flattened cache, of the
+    cache's dtype (f32 in serving, where q is bf16 at full width: JAX
+    promotes the products to f32, and so does this function).  GQA by
+    head repeat, or ``kv_heads`` as in ``_online_attention``.
+    """
+    B, _, H, _ = q.shape
+    C = ck.shape[1]
+    block = min(block, C)
+    if C % block:
+        raise ValueError(f"cache length {C} not divisible by block {block}")
+    rep = H // KH if kv_heads is None else 1
+    # JAX rounds the weak-typed scale to q's dtype before multiplying
+    scale = torch.tensor(hd ** -0.5, dtype=q.dtype).item()
+    qf = (q[:, 0] * scale).float()                          # (B, H, hd)
+
+    m = torch.full((B, H), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, H, hd), dtype=torch.float32, device=q.device)
+    for start in range(0, C, block):
+        kc = split_last(ck[:, start:start + block], KH)
+        vc = split_last(cv[:, start:start + block], KH)
+        if kv_heads is not None:
+            kc, vc = kc.index_select(2, kv_heads), vc.index_select(2, kv_heads)
+        elif rep > 1:
+            kc = kc.repeat_interleave(rep, dim=2)
+            vc = vc.repeat_interleave(rep, dim=2)
+        sc = torch.einsum("bhd,bkhd->bhk", qf, kc.float())  # (B, H, block)
+        pos = torch.arange(start, start + block, device=q.device)
+        sc = sc.masked_fill(~(pos < kv_valid)[None, None, :], NEG_INF)
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        pch = torch.exp(sc - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + pch.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhk,bkhd->bhd", pch.to(vc.dtype).float(), vc.float())
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out[:, None].to(q.dtype)                         # (B, 1, H, hd)
+
+
+def decode_attention(q, ck, cv, kv_valid: int, KH: int, hd: int, *,
+                     block: int = 2048, kv_heads=None):
+    """Attention of one query token a row against the live slots ``[0,
+    kv_valid)`` of the KV cache.  q: (B, 1, H, hd); ck/cv: (B, C, KH*hd),
+    the flattened cache; query head h reads K/V head ``kv_heads[h]``, or
+    ``h // (H // KH)`` without a map.  Returns (B, 1, H, hd) in q's dtype.
+
+    Plain CUDA tensors take the split-KV kernel
+    (``csrc/decode_attention.cu``), two launches a call, which reads the
+    cache in place, each K/V tile once for all the query heads that read
+    it, and takes any cache length (``block`` is the plain version's);
+    ``decode_attention.launches`` counts the calls that launched it.
+    Everything else takes ``decode_attention_plain``: CPU tensors, and
+    fake and meta tensors, whose ops the dry run traces and counts.
+    """
+    if _dec.takes(q):
+        out = _dec.launch(q, ck, cv, kv_valid, KH, hd, kv_heads=kv_heads)
+        decode_attention.launches += 1
+        return out
+    return decode_attention_plain(q, ck, cv, kv_valid, KH, hd, block=block,
+                                  kv_heads=kv_heads)
+
+
+decode_attention.launches = 0
 
 
 def ssd_chunk(S):

@@ -9,8 +9,9 @@ plain version on the CPU; training passes ``use_kernel=False`` and takes
 ``_online_attention``, which autograd differentiates.  Cross-attention
 (``kv_x``, the VLM's image layers) is non-causal over memory rows of
 another length and takes ``_online_attention`` too, as in the JAX
-package.  Single-token decode against the KV cache has no kernel and
-stays plain PyTorch.  ``chunked_xent_loss`` is the training loss head.
+package.  Single-token decode against the KV cache goes through
+``kernels.ops.decode_attention``: the split-KV kernel on CUDA, its plain
+version on the CPU.  ``chunked_xent_loss`` is the training loss head.
 
 Where JAX computes a product of low-precision operands with
 ``preferred_element_type=f32`` or promotes mixed dtypes, the port casts
@@ -198,47 +199,17 @@ def _online_attention(q, k, v, q_offset: int, causal: bool,
 
 def _decode_attention(q, ck, cv, kv_valid: int, KH: int, hd: int,
                       block: int = 2048, kv_heads=None):
-    """Single-token attention against the KV cache, online softmax over
-    chunks of ``min(block, C)`` slots.
+    """Single-token attention against the KV cache: ``kops.decode_attention``,
+    the split-KV kernel on CUDA, its plain version (online softmax over
+    chunks of ``min(block, C)`` slots) elsewhere.
 
     q: (B, 1, H, hd); ck/cv: (B, C, KH*hd) flattened cache, of the
     cache's dtype (f32 in serving, where q is bf16 at full width: JAX
     promotes the products to f32, and so does this function).  GQA by
     head repeat, or ``kv_heads`` as in ``_online_attention``.
     """
-    B, _, H, _ = q.shape
-    C = ck.shape[1]
-    block = min(block, C)
-    if C % block:
-        raise ValueError(f"cache length {C} not divisible by block {block}")
-    rep = H // KH if kv_heads is None else 1
-    # JAX rounds the weak-typed scale to q's dtype before multiplying
-    scale = torch.tensor(hd ** -0.5, dtype=q.dtype).item()
-    qf = (q[:, 0] * scale).float()                          # (B, H, hd)
-
-    m = torch.full((B, H), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros((B, H), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, H, hd), dtype=torch.float32, device=q.device)
-    for start in range(0, C, block):
-        kc = split_last(ck[:, start:start + block], KH)
-        vc = split_last(cv[:, start:start + block], KH)
-        if kv_heads is not None:
-            kc, vc = kc.index_select(2, kv_heads), vc.index_select(2, kv_heads)
-        elif rep > 1:
-            kc = kc.repeat_interleave(rep, dim=2)
-            vc = vc.repeat_interleave(rep, dim=2)
-        sc = torch.einsum("bhd,bkhd->bhk", qf, kc.float())  # (B, H, block)
-        pos = torch.arange(start, start + block, device=q.device)
-        sc = sc.masked_fill(~(pos < kv_valid)[None, None, :], NEG_INF)
-        m_new = torch.maximum(m, sc.amax(dim=-1))
-        pch = torch.exp(sc - m_new[..., None])
-        alpha = torch.exp(m - m_new)
-        l = alpha * l + pch.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum(
-            "bhk,bkhd->bhd", pch.to(vc.dtype).float(), vc.float())
-        m = m_new
-    out = acc / l.clamp_min(1e-30)[..., None]
-    return out[:, None].to(q.dtype)                         # (B, 1, H, hd)
+    return kops.decode_attention(q, ck, cv, kv_valid, KH, hd, block=block,
+                                 kv_heads=kv_heads)
 
 
 def _pad_heads(x, n: int):

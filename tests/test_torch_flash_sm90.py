@@ -31,6 +31,7 @@ import torch
 from repro.kernels.ref import attention_reference as jax_reference
 from repro_torch.kernels import adamw as tadamw
 from repro_torch.kernels import build
+from repro_torch.kernels import decode_attention as tdec
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ssd_scan as tssd
 
@@ -149,7 +150,7 @@ def _ctype(param: str):
 
 
 def _libraries():
-    return [lib for module in (tfa, tssd, tadamw) for lib in vars(module).values()
+    return [lib for module in (tfa, tssd, tadamw, tdec) for lib in vars(module).values()
             if isinstance(lib, build.KernelLibrary)]
 
 
