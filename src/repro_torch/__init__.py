@@ -21,3 +21,9 @@ def resolve_device(device="cuda") -> torch.device:
             "no CUDA device is available; pass device='cpu' (or --device cpu) "
             "to run on the CPU")
     return dev
+
+
+def sync(device: torch.device) -> None:
+    """Wait for the work queued on ``device``; nothing off CUDA."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

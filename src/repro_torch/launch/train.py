@@ -28,7 +28,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, sync
 from repro_torch.checkpoint import store
 from repro_torch.configs import get_config
 from repro_torch.core.executor import DecentralizedTrainer, IterationResult
@@ -75,12 +75,10 @@ def train_iteration(trainer: DecentralizedTrainer,
     seconds of ``trainer.iteration`` alone (the device synchronized on
     both sides) and the tokens of its completed microbatches."""
     batches = {dn: shards[dn].microbatches() for dn in shards}
-    sync = (torch.cuda.synchronize if trainer.device.type == "cuda"
-            else lambda: None)
-    sync()
+    sync(trainer.device)
     t0 = time.perf_counter()
     r = trainer.iteration(batches)
-    sync()
+    sync(trainer.device)
     dc = next(iter(shards.values())).cfg
     return r, time.perf_counter() - t0, r.completed * dc.microbatch_size * dc.seq_len
 
@@ -95,11 +93,6 @@ def run_gwtf(args) -> float:
               f"{tokens / secs:.0f} tok/s)")
     print(f"final loss {trainer.losses[-1]:.4f}")
     return trainer.losses[-1]
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def spmd_params(cfg: ModelConfig, seed: int, device):
@@ -132,10 +125,10 @@ def spmd_step(train_step, params, opt_state, shard: DataNodeShard, device):
     synchronized on both sides)."""
     b = shard.next_batch()
     batch = {k: torch.from_numpy(b[k]).to(device) for k in ("tokens", "labels")}
-    _sync(device)
+    sync(device)
     t0 = time.perf_counter()
     params, opt_state, loss = train_step(params, opt_state, batch)
-    _sync(device)
+    sync(device)
     return params, opt_state, float(loss), time.perf_counter() - t0, batch[
         "tokens"].numel()
 

@@ -25,7 +25,13 @@ computed from the spans and the counter:
   device ms a profiled iteration launched under ``update``, under
   ``attention.core`` in a ``stage.fwd`` or a ``replay``, under ``replay``;
 * ``decode_attention_core_ms``: device ms a decode step of the profiled
-  request launched under ``attention.core`` in ``decode.step``;
+  request launched under ``attention.core`` in ``decode.step``.  A step
+  replayed from a CUDA graph has no ``attention.core`` span (its sublayer
+  spans exist at its capture only): when no step of the profiled request
+  has one, the reading is left out and ``unavailable`` names it;
+* ``decode_attention_kernel_ms``: device ms a decode step of the profiled
+  request in the decode attention kernels, found by kernel name
+  (``DECODE_KERNELS``), replayed steps included;
 * ``outside_share``: the share of the profile's busy time charged to no
   span, %;
 * ``idle_vs_window``: 1 - a profiled iteration's busy time over the mean
@@ -51,6 +57,9 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 from perfbench import by_span, harness, profiling  # noqa: E402
+
+# the split-KV decode attention kernels (kernels/csrc/decode_attention.cu)
+DECODE_KERNELS = ("decode_attention_split_kernel", "decode_attention_merge_kernel")
 
 
 def by_kernel(events, n: int = 12) -> list:
@@ -79,11 +88,20 @@ def by_kernel(events, n: int = 12) -> list:
     return [[*k, v] for k, v in sorted(totals.items(), key=lambda kv: -kv[1])[:n]]
 
 
+def decode_kernel_s(events) -> float:
+    """Device s of the decode attention kernels (``DECODE_KERNELS``)."""
+    from torch.autograd import DeviceType
+    return sum((e.time_range.end - e.time_range.start) * 1e-6 for e in events
+               if e.device_type == DeviceType.CUDA
+               and any(k in e.name for k in DECODE_KERNELS))
+
+
 def _with_spans(summarize):
     def summary(events, wall_s):
         out = summarize(events, wall_s)
         out.update(by_span.charge(events))
         out["by_kernel"] = by_kernel(events)
+        out["decode_kernel_s"] = decode_kernel_s(events)
         return out
     return summary
 
@@ -119,8 +137,15 @@ def readings(cell, run, syncs, records) -> dict:
                 dev, ["stage.fwd", "replay"], "attention.core") / k * 1e3
             out["replay_device_ms"] = by_span.total(dev, ["replay"]) / k * 1e3
         else:
-            out["decode_attention_core_ms"] = by_span.total(
-                dev, ["decode.step"], "attention.core") / cell.workload["gen"] * 1e3
+            gen = cell.workload["gen"]
+            core = by_span.total(dev, ["decode.step"], "attention.core")
+            if core > 0:
+                out["decode_attention_core_ms"] = core / gen * 1e3
+            else:
+                out["unavailable"] = ["decode_attention_core_ms: no attention.core "
+                                      "span in a decode.step of the profiled request "
+                                      "(its steps replayed from CUDA graphs)"]
+            out["decode_attention_kernel_ms"] = prof["decode_kernel_s"] / gen * 1e3
     return out
 
 
