@@ -56,7 +56,18 @@ stops with a non-zero exit at the first phase that fails:
    output within one bf16 ulp at its row's magnitude, one launch counted a
    call, the splits the plan picked, the kernel's device time, a single
    call's, the plain version's and the byte bound (the live K and V read
-   once at 3.35 TB/s);
+   once at 3.35 TB/s); 3d. training's flash pair
+   (``ops.flash_attention_train``: the sm90 forward writing its
+   log-sum-exp, then ``flash_attention_bwd_sm90.cu``'s three launches) at
+   the training cells' shapes (``TRAIN_ATTENTION_CASES``: the GPT-like
+   8 x 1,024 of 16 heads of 64, the 7B cell's 2 x 512 of 36/4 heads of
+   128 in its 4,096 window): the output and dQ, dK, dV against autograd of
+   ``layers._online_attention`` (relative RMS error), the pair's device
+   time (forward and backward, and the backward alone), a single call's,
+   ``_online_attention``'s forward and backward, and the bound: 13
+   products a causal pair at 989 TFLOP/s (Q Kᵀ and P V forward; S, dP,
+   dV, and dS's three terms into dK and dQ backward), against the bytes
+   (q, k, v, o, dO once, dQ, dK, dV once) at 3.35 TB/s;
 4. ``gwtf-llama-300m``, ``tinyllama-1.1b``, ``mamba2-130m``,
    ``hymba-1.5b``, ``qwen1.5-4b``, ``starcoder2-7b``, ``gwtf-llama-7b``,
    ``gemma-7b`` (head_dim 256), ``granite-moe-3b-a800m``,
@@ -90,9 +101,10 @@ stops with a non-zero exit at the first phase that fails:
    churn 0.1, each with its loss, completed/launched/dropped/rerouted, wall ms
    and tokens/s, the trainer's counter invariants held, every loss
    finite, and the kernels' launches counted over the run (the training
-   path attends through ``_online_attention``, which autograd
-   differentiates, and launches neither attention kernel; AdamW's kernel
-   updates each stage and head tree once an iteration); the peak memory, and the
+   path attends through the flash pair: the forward once a layer of each
+   stage forward, the backward once a layer of each stage backward;
+   AdamW's kernel updates each stage and head tree once an iteration);
+   the peak memory, and the
    time of the gradient screen's host copy of one stage's gradient tree
    (the screen runs only under corrupt-gradient churn); then, reduced, in
    a child process with ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` and
@@ -150,8 +162,9 @@ stops with a non-zero exit at the first phase that fails:
     --mode spmd`` (``SPMD_ARGS``) trains ``gwtf-llama-300m`` at full width
     through ``build_spmd`` and ``spmd_step``, each step's loss (finite),
     ms and tokens/s, the last three steps as ``profile_run``'s (one under
-    ``torch.profiler``), peak memory, no attention kernel launched and
-    AdamW's once a step; 10b. reduced f32
+    ``torch.profiler``), peak memory, the flash pair launched once a layer
+    a step (the tensors are plain without a mesh) and AdamW's once a step;
+    10b. reduced f32
     VLM (with vision, nonzero gates), audio (frame embeddings) and MoE
     models through ``make_train_step`` on cuda against the cpu, each
     step's loss within ``TRAIN_LOSS_RTOL``;
@@ -216,7 +229,7 @@ from repro_torch.core.runtime.serving import (ServeTrainer,  # noqa: E402
 from repro_torch.core.runtime import cache as train_cache  # noqa: E402
 from repro_torch.core.runtime import serving  # noqa: E402
 from repro_torch.core.runtime.stages import (init_head_params,  # noqa: E402
-                                             init_stage_params)
+                                             init_stage_params, stage_bounds)
 from repro_torch.core.scenarios import corpus, harness  # noqa: E402
 from repro_torch.core.scenarios import generate as scenarios  # noqa: E402
 from repro_torch.core.scenarios.spec import ScenarioSpec  # noqa: E402
@@ -235,6 +248,7 @@ from repro_torch.kernels.timing import (card_line, device_ms,  # noqa: E402
                                         median_ms, show)
 from repro_torch.launch import steps, train  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
 from repro_torch.models.transformer import (decode_step, init_cache,  # noqa: E402
                                             is_vlm, prefill, superblocks)
 from repro_torch.optim.adamw import AdamW  # noqa: E402
@@ -345,6 +359,13 @@ ADAMW_HYPER = dict(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
 ADAMW_PARAM_ULPS, ADAMW_MOMENT_RTOL = 1, 1e-6
 # phase 3c: the serve cells' decode attention at the middle of their 64
 # steps: name, (B, C, kv_valid, H, KH, hd); bf16 q, f32 cache
+# phase 3d: the training cells' attention, (B, S, H, KH, D, window)
+TRAIN_ATTENTION_CASES = [("gpt300m-train", (8, 1024, 16, 16, 64, None)),
+                         ("sc2-7b-8l-train", (2, 512, 36, 4, 128, 4096))]
+# products of 2 D flops a causal pair that the pair computes: Q K^T and P V
+# forward; S and dP in each of the two backward kernels, dV, and dS's
+# three bf16 terms into dK and into dQ
+TRAIN_ATTENTION_PRODUCTS = 2 + 2 * 2 + 1 + 2 * 3
 DECODE_CASES = [("sc2-7b-8l-serve-decode", (64, 1088, 1056, 36, 4, 128)),
                 ("sc2-7b-8l-serve-long", (32, 4096, 4064, 36, 4, 128))]
 # phase 2's sweep of the f32 body's edges, untimed, each held at 2e-4
@@ -454,8 +475,8 @@ HARNESS_FULL = [
 HARNESS_FULL_ZERO_CHURN = HARNESS_FULL[0][:3]
 # phase 9: the port's examples, run in this process on cuda and on the cpu,
 # with the flash launches each makes on cuda (torch_serve_decode: one
-# prefill of its 4 layers; the rest train, which launches no attention
-# kernel and AdamW's once a tree an update)
+# prefill of its 4 layers; the rest train in f32, which launches no
+# attention kernel, and AdamW's once a tree an update)
 EXAMPLES = [("torch_quickstart", [], 0),
             ("torch_decentralized_train",
              ["--iterations", "3", "--activation-codec", "int8"], 0),
@@ -935,8 +956,104 @@ def phase_decode_attention_kernel():
     return results[DECODE_CASES[0][0]]
 
 
+def train_attention_bound(shape):
+    """(ms, "bytes" or "operations"): the least time for the pair's forward
+    and backward at ``shape``: ``TRAIN_ATTENTION_PRODUCTS`` products a
+    causal pair at 989 TFLOP/s against q, k, v, o, dO read and dQ, dK, dV
+    written once at 3.35 TB/s."""
+    B, S, H, KH, D, window = shape
+    pairs = attended_pairs(S, True, window) * B * H
+    t_ops = 2 * D * TRAIN_ATTENTION_PRODUCTS * pairs / PEAK_FLOPS[torch.bfloat16]
+    t_bytes = 2 * (5 * B * S * H * D + 4 * B * S * KH * D) / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_flash_train_kernel():
+    """3d: training's flash pair against autograd of ``_online_attention``
+    at the training cells' shapes; returns the GPT-like shape's numbers
+    for the kernels line."""
+    print("== 3d. training's flash pair (forward with lse, hand-written "
+          "backward) against autograd of _online_attention")
+    results = {}
+    for name, (B, S, H, KH, D, window) in TRAIN_ATTENTION_CASES:
+        g = torch.Generator(device="cuda").manual_seed(S + H)
+        q, dout = (torch.randn(B, S, H, D, generator=g, device="cuda").bfloat16()
+                   for _ in range(2))
+        k, v = (torch.randn(B, S, KH, D, generator=g, device="cuda").bfloat16()
+                for _ in range(2))
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+        def grads(fn):
+            out = fn(*leaves)
+            return [out] + list(torch.autograd.grad(out, leaves, dout))
+
+        pair = lambda q, k, v: ops.flash_attention_train(  # noqa: E731
+            q, k, v, window=window)
+        plain = lambda q, k, v: layers._online_attention(  # noqa: E731
+            q, k, v, 0, causal=True, window=window)
+        before = ops.flash_attention_bwd.launches
+        got = grads(pair)
+        if ops.flash_attention_bwd.launches != before + 1:
+            raise SystemExit(f"3d {name}: flash_attention_bwd.launches rose by "
+                             f"{ops.flash_attention_bwd.launches - before}")
+        want = grads(plain)
+        errs = {n: float((a.detach().double() - b.detach().double()).norm()
+                         / b.detach().double().norm())
+                for n, a, b in zip(("o", "dq", "dk", "dv"), got, want)}
+        if not max(errs.values()) < 1e-2:
+            raise SystemExit(f"3d {name}: relative RMS errors {errs} against "
+                             f"_online_attention, limit 1e-2")
+        del got, want
+        out, lse = ops.flash_attention_lse(q, k, v, window=window)
+        backward = lambda: ops.flash_attention_bwd(  # noqa: E731
+            q, k, v, out, lse, dout, window=window)
+        dev, dev_bwd = device_ms(lambda: grads(pair), reps=20), device_ms(backward, reps=20)
+        ms = median_ms(lambda: grads(pair), reps=20)
+        plain_ms = median_ms(lambda: grads(plain), reps=5)
+        bound_ms, bound_by = train_attention_bound((B, S, H, KH, D, window))
+        share = f"{bound_ms / dev:.1%} of the bound" if dev else "not taken"
+        print(f"{name}: B={B} S={S} H/KH={H}/{KH} D={D} window={window}; "
+              f"relative RMS error against _online_attention "
+              f"{', '.join(f'{n} {e:.2e}' for n, e in errs.items())}; pair "
+              f"device {show(dev)} ({share}; backward alone {show(dev_bwd)}), "
+              f"a single call {ms:.4f} ms, _online_attention forward and "
+              f"backward {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}: {TRAIN_ATTENTION_PRODUCTS} products a causal "
+              f"pair at 989 TFLOP/s)")
+        results[name] = dict(max_abs_err=max(errs.values()), device_ms=dev,
+                             backward_device_ms=dev_bwd, ms=ms,
+                             plain_ms=plain_ms, bound_ms=bound_ms)
+        del q, k, v, dout, leaves, out, lse
+        torch.cuda.empty_cache()
+    return results[TRAIN_ATTENTION_CASES[0][0]]
+
+
+def stage_dispatches(trainer) -> tuple:
+    """(attention forwards, attention backwards) the trainer's stage
+    dispatches so far call for: a layer's forward per stage forward (fused,
+    plain, or remat's recompute), a layer's backward per stage backward."""
+    c = trainer.stages
+    n = len(c.fwd_calls)
+    per = [hi - lo for lo, hi in (stage_bounds(trainer.cfg, s, n) for s in range(n))]
+    fwd = sum(L * (f + m) for L, f, m in zip(per, c.fwd_calls, c.remat_recomputes))
+    return fwd, sum(L * b for L, b in zip(per, c.bwd_calls))
+
+
+def check_train_attention(label: str, launches: dict, want: tuple):
+    """Training attends through the flash pair: ``want`` (forwards,
+    backwards) calls, all on the bf16 body; no SSD scan."""
+    fwd, bwd = want
+    got = (launches["flash_attention"], ops.flash_attention_bwd.launches)
+    if got != (fwd, bwd) or not bwd or launches["ssd_scan"] \
+            or fa.BODY_LAUNCHES[fa.SM90_LIBRARY.name] != fwd:
+        raise SystemExit(f"{label}: flash forward and backward launches {got}, "
+                         f"want {(fwd, bwd)} (one a layer of each stage "
+                         f"dispatch), bodies {fa.BODY_LAUNCHES}, {launches}")
+
+
 def reset_launches():
     ops.flash_attention.launches = 0
+    ops.flash_attention_bwd.launches = 0
     ops.ssd_scan.launches = 0
     ops.adamw_update.launches = 0
     ops.decode_attention.launches = 0
@@ -1218,8 +1335,8 @@ def check_counters(r, churn: float):
 
 def phase_train():
     """Train at full width as the main path; returns each kernel's
-    launches counted over exactly this run (attention: 0, neither is on
-    the path; AdamW: one a tree updated)."""
+    launches counted over exactly this run (attention: the flash pair once
+    a layer of each stage dispatch; AdamW: one a tree updated)."""
     args = train.parser().parse_args(TRAIN_ARGS)
     t0 = time.perf_counter()
     trainer, shards = train.build_gwtf(args)
@@ -1236,6 +1353,7 @@ def phase_train():
           f"to the card)")
     torch.cuda.reset_peak_memory_stats()
     reset_launches()                      # the main path starts here
+    dispatched = stage_dispatches(trainer)
 
     def step(it: int, churn: float):
         trainer.churn_model = BernoulliChurn(churn)
@@ -1257,16 +1375,16 @@ def phase_train():
     for it in range(TRAIN_ITERS, 2 * TRAIN_ITERS):
         step(it, TRAIN_CHURN)
     launches = read_launches()
-    if any(launches.values()) or any(fa.BODY_LAUNCHES.values()):
-        raise SystemExit(f"the training path launched kernels {launches}: its "
-                         f"attention must be the differentiable plain path")
+    check_train_attention("phase 6", launches, tuple(
+        a - b for a, b in zip(stage_dispatches(trainer), dispatched)))
+    launches["flash_attention_bwd"] = ops.flash_attention_bwd.launches
     launches["adamw_update"] = ops.adamw_update.launches
     check_adamw_launches("phase 6", calm_updates, TRAIN_ITERS,
                          args.stages + args.data_nodes,
                          launches["adamw_update"] - calm_updates)
     print(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-          f"launches {launches} (no attention kernel is on the training "
-          f"path; AdamW's kernel updates each tree)")
+          f"launches {launches} (attention through the flash pair, once a "
+          f"layer of each stage dispatch; AdamW's kernel updates each tree)")
     # the gradient screen (on only when the churn model corrupts gradients)
     # copies every per-microbatch gradient to the host: one stage's worth
     grads = trainer.stage_params[0]
@@ -1382,8 +1500,8 @@ def phase_train_vs_cpu():
 
 def phase_train_7b():
     """The paper's 7B model, cut in depth only, through ``launch.train``;
-    returns each kernel's launches over the run (attention: 0, neither is
-    on the training path; AdamW: one a tree updated)."""
+    returns each kernel's launches over the run (attention: the flash pair
+    once a layer of each stage dispatch; AdamW: one a tree updated)."""
     args = train.parser().parse_args(TRAIN_7B_ARGS)
     full = get_config(args.arch)
     cfg = dataclasses.replace(full, num_layers=TRAIN_7B_LAYERS)
@@ -1400,6 +1518,7 @@ def phase_train_7b():
           f"{args.microbatches} microbatches of {args.batch} x {args.seq_len} "
           f"tokens; trainer built in {time.perf_counter() - t0:.1f}s")
     reset_launches()                      # the main path starts here
+    dispatched = stage_dispatches(trainer)
     for it in range(TRAIN_7B_ITERS):
         r, secs, tokens = train.train_iteration(trainer, shards)
         check_counters(r, 0.0)
@@ -1407,8 +1526,9 @@ def phase_train_7b():
               f"{r.launched}, {secs * 1e3:.1f} ms, {tokens / secs:.0f} tok/s, "
               f"store peak {r.store_peak_bytes / 2**30:.2f} GiB")
     launches = read_launches()
-    if any(launches.values()) or any(fa.BODY_LAUNCHES.values()):
-        raise SystemExit(f"the training path launched kernels {launches}")
+    check_train_attention("phase 6d", launches, tuple(
+        a - b for a, b in zip(stage_dispatches(trainer), dispatched)))
+    launches["flash_attention_bwd"] = ops.flash_attention_bwd.launches
     launches["adamw_update"] = ops.adamw_update.launches
     check_adamw_launches("phase 6d", launches["adamw_update"], TRAIN_7B_ITERS,
                          args.stages + args.data_nodes)
@@ -1736,7 +1856,7 @@ def harness_launches(spec, name: str, out) -> dict:
     """The kernel launches a check must make: one flash launch per
     attention layer and one SSD launch per SSM layer of each prefill call
     of the serving check (the ServeTrainer's and the standalone decode's);
-    none elsewhere (training attends through ``_online_attention``)."""
+    none elsewhere (training in f32 attends through ``_online_attention``)."""
     calls = (out["prefill_calls"] + out["streams_checked"]
              if name == "serving-consistency" else 0)
     cfg = scenarios.model_config(spec)
@@ -1996,8 +2116,9 @@ def phase_examples():
 def phase_spmd():
     """``--mode spmd`` at full width as the main path, through
     ``launch.train``'s ``build_spmd`` and ``spmd_step``; returns each
-    kernel's launches over the run (attention: 0, training attends through
-    the plain, differentiable path; AdamW: one a step)."""
+    kernel's launches over the run (attention: without a mesh the tensors
+    are plain, so the flash pair once a layer a step, and its forward once
+    more where remat recomputes it; AdamW: one a step)."""
     args = train.parser().parse_args(SPMD_ARGS)
     device = torch.device(args.device)
     before = torch.cuda.memory_allocated()    # what earlier phases still hold
@@ -2033,9 +2154,10 @@ def phase_spmd():
     print("where the time goes (torch.profiler), the last three steps:")
     profile_run(cfg.name, "spmd step", step)
     launches = read_launches()
-    if any(launches.values()) or any(fa.BODY_LAUNCHES.values()):
-        raise SystemExit(f"--mode spmd launched kernels {launches}: its "
-                         f"attention must be the differentiable plain path")
+    n = cfg.num_layers * args.steps
+    check_train_attention("--mode spmd", launches,
+                          (n * (2 if cfg.remat else 1), n))
+    launches["flash_attention_bwd"] = ops.flash_attention_bwd.launches
     launches["adamw_update"] = ops.adamw_update.launches
     if launches["adamw_update"] != args.steps:
         raise SystemExit(f"--mode spmd: {launches['adamw_update']} AdamW "
@@ -2148,7 +2270,11 @@ def sharded_step() -> int:
     rules=ShardingRules())`` on a process group of world size 1 (NCCL),
     parameters and AdamW state DTensors on the (1, 1) mesh, both under
     deterministic algorithms; prints one JSON line.  Both update through
-    AdamW's kernel: the sharded step on its DTensors' local shards."""
+    AdamW's kernel: the sharded step on its DTensors' local shards.  Both
+    attend through ``_online_attention``: the sharded step's DTensors take
+    it, and the run without a mesh, whose plain tensors the flash pair
+    would take, is held to it (the route patched here) so that the two
+    compute the same function."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.parallel.sharding import ShardingRules, distribute
@@ -2160,7 +2286,10 @@ def sharded_step() -> int:
         mesh, rules = make_host_mesh("cuda"), ShardingRules()
         args = train.parser().parse_args(SPMD_ARGS)
         runs = {}
+        route = ops.flash_attention_train_route
         for on_mesh in (False, True):
+            ops.flash_attention_train_route = (
+                route if on_mesh else lambda q, k, v: False)
             cfg, params, opt_state, _, shard = train.build_spmd(args)
             step = steps.make_train_step(cfg, AdamW(lr=args.lr),
                                          mesh=mesh if on_mesh else None,
@@ -2331,13 +2460,14 @@ def main(argv=None) -> int:
     ssd_timings = phase_ssd_kernel()
     adamw_timings = phase_adamw_kernel()
     decode_timings = phase_decode_attention_kernel()
+    train_attention_timings = phase_flash_train_kernel()
     torch.cuda.empty_cache()
-    took("1-3c")
+    took("1-3d")
 
     # each serve is one main path, counted from 0 with its model alone
     # on the card; the kernels line reports their sums
     launches = {"flash_attention": 0, "ssd_scan": 0, "adamw_update": 0,
-                "decode_attention": 0}
+                "decode_attention": 0, "flash_attention_bwd": 0}
     for arch in SERVE_ARCHS:
         for name, n in run_serve(arch).items():
             launches[name] += n
@@ -2346,8 +2476,9 @@ def main(argv=None) -> int:
     phase_gpu_vs_cpu()
     took("4-5")
 
-    # training launches no attention kernel and AdamW's once a tree an
-    # update; the phases check the counts, each counted from 0
+    # training attends through the flash pair, once a layer of each stage
+    # dispatch, and AdamW's kernel runs once a tree an update; the phases
+    # check the counts, each counted from 0
     for phase in (phase_train, phase_train_checks, phase_train_vs_cpu,
                   phase_train_7b):
         for name, n in (phase() or {}).items():
@@ -2411,6 +2542,11 @@ def main(argv=None) -> int:
              source="src/repro_torch/kernels/csrc/decode_attention.cu",
              replaces=None, launches=launches["decode_attention"],
              **decode_timings),
+        # phase 3d's GPT-like shape; launches (calls) over phases 6-6d, 10
+        dict(name="flash_attention_bwd", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
+             replaces=None, launches=launches["flash_attention_bwd"],
+             **train_attention_timings),
     ]
     print("kernels: " + ", ".join(
         f"{k['name']} launches={k['launches']} max_abs_err={k['max_abs_err']:.3g}"

@@ -10,9 +10,11 @@ has blocks of two kinds: its stage tree is ``{"dense": stack, "moe":
 stack}``, each kind present stacked on its own (dense layers come first);
 every other model's stage tree is the one stack.  ``stage_forward``
 unbinds each stack into one view per layer for
-``transformer._apply_block`` and runs causal attention through
-``_online_attention`` and an SSM layer's scan through ``ssd_chunked``
-(``use_kernel=False``, as the JAX stage does: neither kernel has a
+``transformer._apply_block`` with ``use_kernel=False``: causal attention
+takes the differentiable flash pair (``kops.flash_attention_train``, the
+forward kernel and a hand-written backward) on plain CUDA bf16 tensors of
+head dim 64 or 128 and ``_online_attention`` elsewhere, as the JAX stage
+does; an SSM layer's scan takes ``ssd_chunked`` (the SSD kernel has no
 backward).  An MoE layer runs the token-routed experts (``moe_impl=
 "ragged"``: the work of the chosen experts only, no host sync on the
 card), where the JAX stage runs every expert on every token; the two

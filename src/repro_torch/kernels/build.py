@@ -1,6 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a
+Each ``csrc/<name>.cu`` is compiled with ``nvcc`` for ``sm_90a`` (with
+``csrc/`` on the include path, for the headers the sources share) into a
 shared library with a plain C interface, at first use, into
 ``build/<hash of the source and flags>/lib<name>.so`` at the root of the
 checkout, and loaded with ``ctypes``.  Nothing is built or loaded at
@@ -57,7 +58,10 @@ class KernelLibrary:
         self.build_log = ""         # nvcc's output (ptxas register and spill lines)
 
     def path(self) -> Path:
-        key = hashlib.sha256(self.source.read_bytes()
+        """Keyed by the source, the headers in ``csrc/`` it may include and
+        the flags."""
+        headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+        key = hashlib.sha256(self.source.read_bytes() + headers
                              + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
         return BUILD_ROOT / key / f"lib{self.name}.so"
 
@@ -71,7 +75,8 @@ class KernelLibrary:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib.parent)
         os.close(fd)
         try:
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(self.source)],
+            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
+                                   str(self.source)],
                                   capture_output=True, text=True)
             self.build_log = proc.stdout + proc.stderr
             if proc.returncode != 0:

@@ -53,157 +53,28 @@
 // it with TMA.
 //   Rounding: the JAX kernel multiplies P in f32 (flash_attention.py:76-77);
 // rounding P to bf16 before P V is the one new rounding point here.
+//   Training (flash_attention_fwd_lse, D = 64 and 128) runs the same body
+// with a compile-time flag that also stores each row's log-sum-exp, from
+// which the backward (flash_attention_bwd_sm90.cu) recomputes P; the
+// serving kernel is the body without it, instruction for instruction.
+// The building blocks both files use are in sm90_flash_common.cuh.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90_flash_common.cuh"
 
 namespace {
 
 constexpr int BQ = 64;            // query rows per block
 constexpr int BK = 64;            // keys per KV tile
 constexpr int THREADS = 128;      // one warpgroup
-constexpr int BOX = 64 * 64 * 2;  // bytes of one 64 x 64 bf16 box, 128-byte rows
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // Q, then K and V of stage 0, then K and V of stage 1, each D/64 boxes;
 // 1 KB more to align the base to the 1024 bytes the swizzle repeats over
 template <int D>
 constexpr size_t smem_bytes() {
   return (size_t)5 * (D / 64) * BOX + 1024;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// a copy that never lands traps (a launch error) instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  uint32_t tries = 0;
-  do {
-    if (++tries == (1u << 26)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0,
-                                          int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
-      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a tile with 128-byte rows and 128-byte
-// swizzle: start address, leading and stride byte offsets in 16-byte units
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)lbo << 16) |
-         ((uint64_t)sbo << 32) | (1ull << 62);
-}
-// K-major operand (Q, K): the 8-row groups lie 1024 B apart; no leading offset
-__device__ __forceinline__ uint64_t desc_k_major(uint32_t addr) {
-  return desc_sw128(addr, 1, 1024 >> 4);
-}
-// MN-major operand (V, D contiguous): 8-key groups 1024 B apart, 64-column
-// boxes BOX apart
-__device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr) {
-  return desc_sw128(addr, BOX >> 4, 1024 >> 4);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keeps the compiler from moving register reads or writes across wgmma
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// d (64 x 64, f32) = A B^T (+ d if accumulate): A (64 x 16) and B (64 x 16)
-// bf16, both K-major in shared memory
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
-                                         int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 64, f32) += A B: A (64 x 16 bf16) in registers, in the layout of
-// the m64nNk16 accumulator; B (16 x 64 bf16) MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // K and V tile kt into the ring stage at k_dst (V follows K), completing
@@ -221,24 +92,19 @@ __device__ __forceinline__ void load_kv(const CUtensorMap* k_map, const CUtensor
   }
 }
 
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
-                      const __grid_constant__ CUtensorMap k_map,
-                      const __grid_constant__ CUtensorMap v_map,
-                      const __grid_constant__ CUtensorMap o_map, int S, int H, int KH,
-                      int causal, int window, float scale_log2) {
+// The kernel's body.  With LSE it also writes each row's natural log-sum-exp
+// of the scaled, masked scores, f32, to lse[(b * H + h) * S_pad + row] for
+// every row of its tile (S_pad: S rounded up to the tile; rows past S score
+// zero-filled queries, so their values are finite), which the backward
+// (flash_attention_bwd_sm90.cu) recomputes P from.  Without it the body is
+// the serving kernel's, unchanged.
+template <int D, bool LSE>
+__device__ __forceinline__ void flash_fwd_body(const CUtensorMap& q_map,
+                                               const CUtensorMap& k_map,
+                                               const CUtensorMap& v_map,
+                                               const CUtensorMap& o_map, int S, int H,
+                                               int KH, int causal, int window,
+                                               float scale_log2, float* lse, int S_pad) {
   constexpr int NB = D / 64;      // 64-column boxes per tile
   constexpr int TILE = NB * BOX;  // bytes of one 64-row tile of q, k, v or o
   __shared__ __align__(8) uint64_t full[2];  // one mbarrier per ring stage
@@ -311,7 +177,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
       wgmma_ss(s, desc_k_major(base + off), desc_k_major(k_s + off), kk > 0);
     }
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(s);
 
     // scale into log2 units; mask only on tiles that straddle a boundary
@@ -397,7 +263,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
       for (int nb = 0; nb < NB; ++nb)
         wgmma_rs(o[nb], p[kk], desc_mn_major(v_s + nb * BOX + kk * 16 * 128));
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb) fence_regs(o[nb]);
 
@@ -413,6 +279,13 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
   for (int off = 1; off < 4; off <<= 1) {
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  if constexpr (LSE) {
+    if ((lane & 3) == 0) {
+      float* row = lse + (size_t)(b * H + h) * S_pad;
+      row[qpos0] = (m0 + log2f(fmaxf(l0, 1e-30f))) * LN2;
+      row[qpos1] = (m1 + log2f(fmaxf(l1, 1e-30f))) * LN2;
+    }
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f);
   const float inv1 = 1.f / fmaxf(l1, 1e-30f);
@@ -438,42 +311,28 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver entry point: reached through the
-// runtime, so the library needs no -lcuda
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
+// the serving kernel
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap k_map,
+                      const __grid_constant__ CUtensorMap v_map,
+                      const __grid_constant__ CUtensorMap o_map, int S, int H, int KH,
+                      int causal, int window, float scale_log2) {
+  flash_fwd_body<D, false>(q_map, k_map, v_map, o_map, S, H, KH, causal, window, scale_log2,
+                           nullptr, 0);
 }
 
-// (B, S, heads, D) contiguous bf16 as dims {D, heads, S, B}, box {64, 1, 64, 1}
-CUresult make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, int S,
-                  int heads, int D) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
-                                 (cuuint64_t)S * heads * D * 2};
-  const cuuint32_t box[4] = {64, 1, BK, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+// the training forward: the same, and the rows' log-sum-exp for the backward
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_lse_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap o_map, int S, int H, int KH,
+                          int causal, int window, float scale_log2, float* lse, int S_pad) {
+  flash_fwd_body<D, true>(q_map, k_map, v_map, o_map, S, H, KH, causal, window, scale_log2,
+                          lse, S_pad);
 }
 
 template <int D>
@@ -491,6 +350,36 @@ cudaError_t launch(const CUtensorMap& q, const CUtensorMap& k, const CUtensorMap
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_lse(const CUtensorMap& q, const CUtensorMap& k, const CUtensorMap& v,
+                       const CUtensorMap& o, float* lse, int B, int S, int H, int KH,
+                       int causal, int window, float scale_log2, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<D>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_lse_sm90_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(B * H, (S + BQ - 1) / BQ);
+  flash_fwd_lse_sm90_kernel<D><<<grid, THREADS, smem, stream>>>(
+      q, k, v, o, S, H, KH, causal, window, scale_log2, lse, (int)grid.y * BQ);
+  return cudaGetLastError();
+}
+
+// q, o over H heads and k, v over KH as tensor maps; 0 or minus the CUresult
+int encode_maps(CUtensorMap (&maps)[4], const void* q, const void* k, const void* v,
+                const void* o, int B, int S, int H, int KH, int D) {
+  const cudaError_t bind = bind_context();
+  if (bind != cudaSuccess) return (int)bind;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  const void* ptrs[4] = {q, k, v, o};
+  const int heads[4] = {H, KH, KH, H};
+  for (int i = 0; i < 4; ++i) {
+    const CUresult res = make_map(encode, &maps[i], ptrs[i], B, S, heads[i], D);
+    if (res != CUDA_SUCCESS) return -(int)res;
+  }
+  return 0;
+}
+
 }  // namespace
 
 // Returns 0 on success, the cudaError_t of a refused launch, or minus the
@@ -501,15 +390,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    int B, int S, int H, int KH, int D, int causal,
                                    int window, float scale, void* stream) {
   if (D != 64 && D != 128 && D != 256) return (int)cudaErrorInvalidValue;
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
   CUtensorMap maps[4];
-  const void* ptrs[4] = {q, k, v, o};
-  const int heads[4] = {H, KH, KH, H};
-  for (int i = 0; i < 4; ++i) {
-    const CUresult res = make_map(encode, &maps[i], ptrs[i], B, S, heads[i], D);
-    if (res != CUDA_SUCCESS) return -(int)res;
-  }
+  const int err = encode_maps(maps, q, k, v, o, B, S, H, KH, D);
+  if (err != 0) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float scale_log2 = scale * LOG2E;
   if (D == 64)
@@ -520,4 +403,24 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                        scale_log2, st);
   return launch<256>(maps[0], maps[1], maps[2], maps[3], B, S, H, KH, causal, window,
                      scale_log2, st);
+}
+
+// The training forward: flash_attention_fwd's output, and the rows'
+// log-sum-exp into lse, f32 (B, H, S_pad) with S_pad = S rounded up to a
+// multiple of 64, every row written.  D is 64 or 128.
+extern "C" int flash_attention_fwd_lse(const void* q, const void* k, const void* v, void* o,
+                                       void* lse, int B, int S, int H, int KH, int D,
+                                       int causal, int window, float scale, void* stream) {
+  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[4];
+  const int err = encode_maps(maps, q, k, v, o, B, S, H, KH, D);
+  if (err != 0) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  const float scale_log2 = scale * LOG2E;
+  if (D == 64)
+    return launch_lse<64>(maps[0], maps[1], maps[2], maps[3], l, B, S, H, KH, causal, window,
+                          scale_log2, st);
+  return launch_lse<128>(maps[0], maps[1], maps[2], maps[3], l, B, S, H, KH, causal, window,
+                         scale_log2, st);
 }

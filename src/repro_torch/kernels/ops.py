@@ -6,6 +6,10 @@ the one to the other.  ``adamw_update`` also gives fake and meta leaves,
 which no kernel here takes, to its plain version, and DTensor leaves to
 the kernel or the plain version as their local shards would go;
 ``decode_attention`` gives fake and meta tensors to its plain version.
+``flash_attention_train`` is differentiable: an autograd function over
+``flash_attention_lse`` and ``flash_attention_bwd``, each of which takes
+its kernel on CUDA and its plain version elsewhere; the training stages
+call it only where ``flash_attention_train_route`` admits the tensors.
 """
 from __future__ import annotations
 
@@ -52,6 +56,149 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None):
 
 
 flash_attention.launches = 0
+
+
+def _train_mask(S: int, window, device):
+    """(S, S) bool: query row q keeps key k where k <= q (and k > q -
+    window)."""
+    pos = torch.arange(S, device=device)
+    mask = pos[None, :] <= pos[:, None]
+    if window is not None:
+        mask &= pos[None, :] > pos[:, None] - window
+    return mask
+
+
+def _repeat_heads(t, rep: int):
+    return t.repeat_interleave(rep, dim=2) if rep > 1 else t
+
+
+def flash_attention_lse_plain(q, k, v, *, window=None):
+    """The plain version of ``flash_attention_lse``, on any device: causal
+    attention as ``layers._online_attention`` computes it (f32 scores, the
+    softmax rounded to v's dtype before P V), and the rows' natural
+    log-sum-exp of the scaled, masked scores, f32 (B, H, S)."""
+    if window is not None and window < 1:
+        raise ValueError(f"window must be at least 1, got {window}")
+    B, S, H, D = q.shape
+    rep = H // k.shape[2]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                     _repeat_heads(k, rep).float()) * D ** -0.5
+    s = s.masked_fill(~_train_mask(S, window, q.device), NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(),
+                       _repeat_heads(v, rep).float()).to(q.dtype)
+    return out, torch.logsumexp(s, dim=-1)
+
+
+def flash_attention_lse(q, k, v, *, window=None):
+    """Causal self-attention that keeps what its backward needs: ``(out,
+    lse)``, out (B, S, H, hd) as ``flash_attention`` computes it and lse
+    the rows' natural log-sum-exp of the scaled, masked scores, f32 (B, H,
+    S'), S' >= S, its first S columns the rows'.
+
+    On CUDA the sm90 forward writes both (``flash_attention.launches``
+    counts it; S' is S rounded up to 64); elsewhere
+    ``flash_attention_lse_plain`` (S' = S)."""
+    if q.is_cuda:
+        out = _fa.launch_lse(q, k, v, window=window)
+        flash_attention.launches += 1
+        return out
+    return flash_attention_lse_plain(q, k, v, window=window)
+
+
+def split3(x):
+    """f32 x as three bf16 terms, hi + mid + lo, whose f32 sum is x
+    exactly (8 significant bits each; each remainder is exact in f32)."""
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.float()).to(torch.bfloat16)
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, window=None):
+    """The plain version of ``flash_attention_bwd``, on any device, in the
+    kernel's arithmetic: P = exp(S scale - lse) recomputed, dV = P^T dO
+    with P in bf16, D = rowsum(dO * O), dS = P (dP - D) in f32, then dQ
+    and dK from dS's three bf16 terms, each product in f32; the K/V
+    gradients summed over each GQA group."""
+    B, S, H, D = q.shape
+    KH = k.shape[2]
+    rep = H // KH
+    scale = D ** -0.5
+    kf, vf = _repeat_heads(k, rep).float(), _repeat_heads(v, rep).float()
+    qf, gf = q.float(), dout.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    p = torch.exp(s * scale - lse[..., :S, None])
+    p = p.masked_fill(~_train_mask(S, window, q.device), 0.0)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(v.dtype).float(), gf)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    delta = (gf * out.float()).sum(-1).transpose(1, 2)      # (B, H, S)
+    ds = p * (dp - delta[..., None])
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros_like(kf)
+    for term in split3(ds):
+        dq = dq + torch.einsum("bhqk,bkhd->bqhd", term.float(), kf)
+        dk = dk + torch.einsum("bhqk,bqhd->bkhd", term.float(), qf)
+
+    def group(g):                                           # (B, S, H, D) -> KH
+        return g.reshape(B, S, KH, rep, D).sum(3)
+    return ((dq * scale).to(q.dtype), group(dk * scale).to(k.dtype),
+            group(dv).to(v.dtype))
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, window=None):
+    """The gradients ``(dq, dk, dv)`` of causal self-attention from
+    ``flash_attention_lse``'s ``out`` and ``lse`` and the output's gradient
+    ``dout``, each in its input's dtype.
+
+    On CUDA the hand-written backward (``csrc/flash_attention_bwd_sm90.cu``,
+    three launches, no atomics: two runs are bit-equal);
+    ``flash_attention_bwd.launches`` counts its calls.  Elsewhere
+    ``flash_attention_bwd_plain``."""
+    if q.is_cuda:
+        grads = _fa.launch_bwd(q, k, v, out, lse, dout, window=window)
+        flash_attention_bwd.launches += 1
+        return grads
+    return flash_attention_bwd_plain(q, k, v, out, lse, dout, window=window)
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttentionTrain(torch.autograd.Function):
+    """Causal self-attention that autograd differentiates through
+    ``flash_attention_lse`` and ``flash_attention_bwd``: on CUDA the
+    kernel pair, elsewhere their plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window):
+        out, lse = flash_attention_lse(q, k, v, window=window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.window = window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(),
+                                         window=ctx.window)
+        return dq, dk, dv, None
+
+
+def flash_attention_train(q, k, v, *, window=None):
+    """Causal self-attention with a backward: q (B, S, H, hd), k, v (B, S,
+    KH, hd) -> (B, S, H, hd).  The training stages take it where
+    ``flash_attention_train_route`` admits their tensors."""
+    return FlashAttentionTrain.apply(q.contiguous(), k.contiguous(),
+                                     v.contiguous(), window)
+
+
+def flash_attention_train_route(q, k, v) -> bool:
+    """Whether causal self-attention over q, k, v takes the kernel pair:
+    plain CUDA tensors (not DTensors, fake or meta tensors), bf16, one
+    head dim of 64 or 128 for all three (``_fa.train_shapes``)."""
+    return (all(type(t) is torch.Tensor and t.is_cuda for t in (q, k, v))
+            and _fa.train_shapes(q, k, v))
 
 
 def decode_attention_plain(q, ck, cv, kv_valid: int, KH: int, hd: int,

@@ -5,8 +5,11 @@ Port of ``repro.models.layers``.  Parameters are dicts of tensors
 (``transformer.ParamTree`` inside the model); the apply functions take
 them and plain tensors.  Causal self-attention goes through
 ``kernels.ops.flash_attention``: the hand-written kernel on CUDA, its
-plain version on the CPU; training passes ``use_kernel=False`` and takes
-``_online_attention``, which autograd differentiates.  Cross-attention
+plain version on the CPU.  Training passes ``use_kernel=False``: its
+causal self-attention takes ``kernels.ops.flash_attention_train``, the
+forward kernel with its log-sum-exp and a hand-written backward, on plain
+CUDA bf16 tensors of head dim 64 or 128, and ``_online_attention``, which
+autograd differentiates, everywhere else.  Cross-attention
 (``kv_x``, the VLM's image layers) is non-causal over memory rows of
 another length and takes ``_online_attention`` too, as in the JAX
 package.  Single-token decode against the KV cache goes through
@@ -285,11 +288,13 @@ def apply_attention(p, x, cfg: ModelConfig, *, positions, causal=True,
     flash kernel.
 
     ``use_kernel`` routes causal self-attention over more than one token:
-    through the flash kernel (serving), or, when False, through
-    ``_online_attention``, the path autograd can differentiate (the
-    training stages, as in the JAX package; the kernel has no backward)
-    and the one the sharded steps take, on each device's heads
-    (``_attend``).
+    through the flash kernel (serving), or, when False, through a path
+    autograd can differentiate (the training stages): the flash pair
+    ``kops.flash_attention_train`` (forward and hand-written backward)
+    where ``kops.flash_attention_train_route`` admits q, k and v (plain
+    CUDA bf16 tensors of head dim 64 or 128), else ``_online_attention``,
+    as in the JAX package: on the CPU, for f32, other head dims, and the
+    sharded steps' DTensors, on each device's heads (``_attend``).
 
     Returns (out, cache).
     """
@@ -340,6 +345,9 @@ def apply_attention(p, x, cfg: ModelConfig, *, positions, causal=True,
     elif causal and use_kernel and kv_x is None:
         with spans.span("attention.core"):
             out = kops.flash_attention(q, k, v, causal=True, window=window)
+    elif causal and kv_x is None and kops.flash_attention_train_route(q, k, v):
+        with spans.span("attention.core"):
+            out = kops.flash_attention_train(q, k, v, window=window)
     else:
         with spans.span("attention.core"):
             out = _attend(lambda q, k, v, kv_heads: _online_attention(

@@ -436,7 +436,9 @@ def train_loss(model, batch, cfg: ModelConfig, moe_impl: str = "dense",
     """batch: dict(tokens (B, S) | embeds (B, S, D), labels (B, S),
     [vision]).  The mean cross-entropy plus ``cfg.router_aux_coef`` times
     the MoE layers' auxiliary loss.  ``use_kernel`` stays False under
-    autograd: the flash kernel has no backward."""
+    autograd: causal self-attention then takes the differentiable flash
+    pair where ``kops.flash_attention_train_route`` admits its tensors
+    (plain CUDA bf16, head dim 64 or 128), else ``_online_attention``."""
     hidden, aux, _ = forward_hidden(
         model, cfg, tokens=batch.get("tokens"), embeds=batch.get("embeds"),
         vision=batch.get("vision"), moe_impl=moe_impl, use_kernel=use_kernel)

@@ -78,10 +78,11 @@ for i, path in enumerate(sys.argv[1:]):
 
 from repro_torch.kernels import flash_attention, ops, ssd_scan
 for lib in (flash_attention.LIBRARY, flash_attention.SM90_LIBRARY,
-            ssd_scan.LIBRARY):
+            flash_attention.BWD_LIBRARY, ssd_scan.LIBRARY):
     assert lib.lib is None and lib.build_seconds is None
 assert not any(flash_attention.BODY_LAUNCHES.values())
 assert ops.flash_attention.launches == 0 and ops.ssd_scan.launches == 0
+assert ops.flash_attention_bwd.launches == 0
 import torch.distributed as dist
 assert not dist.is_initialized()     # importing launch.dryrun sets up no group
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)

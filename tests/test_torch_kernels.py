@@ -181,6 +181,23 @@ def test_build_helper_builds_each_source_once(tmp_path, monkeypatch):
     assert again.path() != built
 
 
+def test_a_changed_header_keys_a_new_build(tmp_path, monkeypatch):
+    """A source's library is keyed by the shared headers of ``csrc/`` too,
+    which nvcc finds there."""
+    argv = tmp_path / "argv"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(f'#!/bin/sh\necho "$@" > {argv}\n'
+                    'while [ "$1" != -o ]; do shift; done\necho built > "$2"\n')
+    nvcc.chmod(0o755)
+    lib, = _libraries(tmp_path, monkeypatch, ["one"], str(nvcc))
+    (tmp_path / "csrc" / "common.cuh").write_text("// shared\n")
+    before = lib.path()
+    (tmp_path / "csrc" / "common.cuh").write_text("// shared, changed\n")
+    assert lib.path() != before
+    lib.build()
+    assert f"-I {tmp_path / 'csrc'} " in argv.read_text()
+
+
 def test_build_helper_raises_with_the_nvcc_log(tmp_path, monkeypatch):
     nvcc = _fake_nvcc(tmp_path, 'echo "error: no such intrinsic"; exit 2')
     lib, = _libraries(tmp_path, monkeypatch, ["bad"], nvcc)
